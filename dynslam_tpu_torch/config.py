@@ -1,0 +1,140 @@
+"""Configuration of the static slice — the fields of
+``dynslam_tpu/config.py`` that the port reads, with the same names and
+defaults (``tests/test_torch_config.py`` holds them equal).
+
+The port keeps its own copy so that it runs without importing anything
+of the JAX package. Its functions read configurations by attribute, so
+the JAX package's objects of the same names are accepted as they are.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Tuple
+
+#: voxels per block edge (ITM SDF_BLOCK_SIZE); 8**3 = 512 voxels a block
+VOXEL_BLOCK_SIZE = 8
+
+
+@dataclass(frozen=True)
+class StereoCalibration:
+    """Stereo rig geometry (the KITTI baseline and focal length)."""
+
+    baseline_m: float = 0.537150654273
+    focal_length_px: float = 707.0912
+
+    @property
+    def bf(self) -> float:
+        """baseline * focal: converts disparity (px) <-> depth (m)."""
+        return self.baseline_m * self.focal_length_px
+
+
+@dataclass(frozen=True)
+class Intrinsics:
+    """Pinhole intrinsics (fx, fy, cx, cy) in pixels."""
+
+    fx: float = 707.0912
+    fy: float = 707.0912
+    cx: float = 601.8873
+    cy: float = 183.1104
+
+    def as_tuple(self) -> Tuple[float, float, float, float]:
+        return (self.fx, self.fy, self.cx, self.cy)
+
+
+@dataclass(frozen=True)
+class SceneParams:
+    """TSDF scene parameters."""
+
+    voxel_size_m: float = 0.05
+    #: truncation band in meters (ITM ``mu``)
+    mu_m: float = 0.30
+    #: max accumulated fusion weight per voxel (ITM ``maxW``)
+    max_weight: int = 100
+    view_frustum_min_m: float = 0.5
+    view_frustum_max_m: float = 20.0
+
+    @property
+    def block_size_m(self) -> float:
+        return self.voxel_size_m * VOXEL_BLOCK_SIZE
+
+
+@dataclass(frozen=True)
+class VoxelDecayParams:
+    """Voxel garbage collection ("decay")."""
+
+    enabled: bool = True
+    min_decay_age: int = 200
+    max_decay_weight: int = 1
+
+
+@dataclass(frozen=True)
+class MapParams:
+    """Map capacities: block pool, local index grid, per-frame caps."""
+
+    pool_capacity: int = 2 ** 17
+    local_dims: Tuple[int, int, int] = (160, 48, 160)
+    max_new_blocks_per_frame: int = 8192
+    max_visible_blocks: int = 16384
+    use_depth_weighting: bool = False
+    raycast_coarse_steps: int = 16
+    raycast_fine_steps: int = 14
+
+
+@dataclass(frozen=True)
+class VisualOdometryParams:
+    """Sparse scene flow / egomotion (the libviso2 equivalents)."""
+
+    nms_radius: int = 3
+    bucket_max_features: int = 15
+    bucket_width: int = 50
+    bucket_height: int = 50
+    max_matches: int = 2048
+    #: LK refinement runs on at most this many (compacted) valid matches
+    refine_cap: int = 1024
+    max_candidates: int = 2048
+    ransac_iters: int = 500
+    inlier_threshold_px: float = 2.0
+    gn_iters: int = 8
+    irls_rounds: int = 8
+    tukey_c_px: float = 0.5
+    descriptor_radius: int = 5
+    max_disparity: int = 192
+    epipolar_band_px: float = 1.5
+    flow_radius_px: float = 100.0
+
+
+@dataclass(frozen=True)
+class StereoMatcherParams:
+    """Census cost-volume stereo matcher."""
+
+    max_disparity: int = 128
+    census_radius: int = 3
+    aggregation_radius: int = 2
+    lr_max_diff: float = 1.5
+    uniqueness: float = 0.95
+    subpixel: bool = True
+    #: horizontal invalid runs up to this many px are filled; 0 disables
+    fill_gaps: int = 0
+
+
+@dataclass(frozen=True)
+class DynSlamConfig:
+    """The top-level fields the static slice reads."""
+
+    frame_width: int = 1242
+    frame_height: int = 375
+    calibration: StereoCalibration = field(default_factory=StereoCalibration)
+    intrinsics: Intrinsics = field(default_factory=Intrinsics)
+    scene: SceneParams = field(default_factory=SceneParams)
+    decay: VoxelDecayParams = field(default_factory=VoxelDecayParams)
+    map: MapParams = field(default_factory=MapParams)
+    vo: VisualOdometryParams = field(default_factory=VisualOdometryParams)
+    stereo: StereoMatcherParams = field(default_factory=StereoMatcherParams)
+    #: depth provider clamps: 0 = invalid
+    min_depth_m: float = 0.5
+    max_depth_m: float = 20.0
+
+    def replace(self, **kw) -> "DynSlamConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,89 @@
+"""Carry state between the JAX package and the port as numpy arrays.
+
+Names follow the JAX package's fields: ``TsdfState``'s for the map, and
+for a fused-pipeline carry the dotted paths of ``FusedCarry`` in the
+order ``jax.tree_util.tree_leaves`` flattens it (``FUSED_CARRY_KEYS``),
+so the ``leaf_<i>`` arrays of ``pipeline/checkpoint.py``'s fused npz map
+onto them by position.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from dynslam_tpu_torch.ops.features import Features
+from dynslam_tpu_torch.ops.tsdf import TsdfConfig, TsdfState
+from dynslam_tpu_torch.pipeline.fused import FusedCarry
+
+STATE_KEYS = tuple(f.name for f in dataclasses.fields(TsdfState))
+_FEATURE_KEYS = Features._fields
+FUSED_CARRY_KEYS = (
+    *(f"state.{k}" for k in STATE_KEYS),
+    "pose_w2c", "held_motion",
+    *(f"prev_l.{k}" for k in _FEATURE_KEYS),
+    *(f"prev_r.{k}" for k in _FEATURE_KEYS),
+    "prev_lg", "prev_rg", "frame_idx", "dropped", "origin", "grid",
+    "prev_rc_points", "prev_rc_hit",
+)
+
+
+def tsdf_config_from_jax(cfg) -> TsdfConfig:
+    """Copy the fields of the JAX package's ``TsdfConfig``."""
+    return TsdfConfig(**{f.name: getattr(cfg, f.name)
+                         for f in dataclasses.fields(TsdfConfig)})
+
+
+def tsdf_state_from_numpy(arrays: Mapping[str, np.ndarray],
+                          device) -> TsdfState:
+    return TsdfState(**{k: torch.tensor(np.asarray(arrays[k]), device=device)
+                        for k in STATE_KEYS})
+
+
+def tsdf_state_to_numpy(state: TsdfState) -> Dict[str, np.ndarray]:
+    return {k: getattr(state, k).cpu().numpy() for k in STATE_KEYS}
+
+
+def _sub(arrays, prefix):
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in arrays.items() if k.startswith(prefix + ".")}
+
+
+def _features(arrays, device) -> Features:
+    return Features(*(torch.tensor(np.asarray(arrays[k]), device=device)
+                      for k in _FEATURE_KEYS))
+
+
+def fused_carry_from_numpy(arrays: Mapping[str, np.ndarray],
+                           device) -> FusedCarry:
+    """A port carry from arrays keyed by ``FUSED_CARRY_KEYS``."""
+    def t(k):
+        return torch.tensor(np.asarray(arrays[k]), device=device)
+
+    return FusedCarry(
+        state=tsdf_state_from_numpy(_sub(arrays, "state"), device),
+        pose_w2c=t("pose_w2c"), held_motion=t("held_motion"),
+        prev_l=_features(_sub(arrays, "prev_l"), device),
+        prev_r=_features(_sub(arrays, "prev_r"), device),
+        prev_lg=t("prev_lg"), prev_rg=t("prev_rg"),
+        frame_idx=int(arrays["frame_idx"]), dropped=t("dropped"),
+        origin=t("origin"), grid=t("grid"),
+        prev_rc_points=t("prev_rc_points"), prev_rc_hit=t("prev_rc_hit"),
+    )
+
+
+def fused_carry_to_numpy(carry: FusedCarry) -> Dict[str, np.ndarray]:
+    out = {f"state.{k}": v
+           for k, v in tsdf_state_to_numpy(carry.state).items()}
+    for name in ("prev_l", "prev_r"):
+        for k, v in zip(_FEATURE_KEYS, getattr(carry, name)):
+            out[f"{name}.{k}"] = v.cpu().numpy()
+    for k in FUSED_CARRY_KEYS:
+        if "." not in k:
+            v = getattr(carry, k)
+            out[k] = v.cpu().numpy() if torch.is_tensor(v) \
+                else np.int32(v)
+    return out

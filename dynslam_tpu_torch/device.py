@@ -1,0 +1,46 @@
+"""Device selection: CUDA unless the caller asks for the CPU.
+
+There is no silent CPU fallback. The CPU runs the plain PyTorch versions
+of the kernels, which is what the parity tests want; it is chosen only
+when the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+@functools.cache
+def _constant(values: tuple, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small constant tensor on ``device``, made once per process and
+    shared: callers must not write into it. A fresh ``torch.tensor(...,
+    device="cuda")`` copies from pageable host memory, which waits for
+    the stream, i.e. costs one host sync per call."""
+    def freeze(v):
+        return tuple(freeze(x) for x in v) if isinstance(v, (list, tuple)) \
+            else v
+    return _constant(freeze(values), dtype, torch.device(device))
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means the current CUDA device; raises if there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "dynslam_tpu_torch: CUDA requested but torch.cuda.is_available() "
+            "is False (pass device='cpu' to run the plain PyTorch versions)"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+

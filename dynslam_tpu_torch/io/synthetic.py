@@ -1,0 +1,322 @@
+"""Synthetic stereo scenes, rendered analytically with numpy.
+
+A numpy-only copy of the render path of ``dynslam_tpu/io/synthetic.py``
+(``Box``, ``SyntheticScene``, ``_texture``, ``_ray_scene_intersect``,
+``render_frame``, ``render_stereo_frame``, ``straight_trajectory``,
+``to_uint8_rgb``). The JAX package's module imports its KITTI writers,
+which pull in JAX through ``dynslam_tpu.io``; this copy imports nothing
+of the JAX package, so the port renders scenes on a machine without
+JAX. ``tests/test_torch_synthetic.py`` pins its images to the JAX
+package's copy byte for byte.
+
+Camera convention: KITTI camera frame (x right, y down, z forward);
+world frame = camera frame of frame 0. Ground plane at y = +1.65.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Tuple
+
+import numpy as np
+
+from dynslam_tpu_torch.config import Intrinsics, StereoCalibration
+
+
+@dataclass
+class Box:
+    """Axis-aligned box in its own object frame, with a world pose."""
+
+    half_extents: np.ndarray  # (3,)
+    pose: np.ndarray  # 4x4 object-to-world
+    #: per-frame velocity (world units/frame); moving boxes get per-frame poses
+    velocity: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    is_dynamic: bool = False
+
+    def pose_at(self, frame: int) -> np.ndarray:
+        T = self.pose.copy()
+        T[:3, 3] = T[:3, 3] + self.velocity * frame
+        return T
+
+
+@dataclass
+class SyntheticScene:
+    ground_y: float = 1.65
+    boxes: List[Box] = field(default_factory=list)
+    max_range: float = 80.0
+
+    @staticmethod
+    def default_scene(with_dynamic: bool = False, seed: int = 0,
+                      n_dynamic: int = 1, n_rows: int = 6,
+                      recurring_oncoming: int = 0) -> "SyntheticScene":
+        """`n_rows` building rows (7 m spacing) set the corridor length a
+        straight trajectory can traverse with texture in view;
+        `recurring_oncoming` appends that many extra oncoming cars spaced
+        28 m behind the first so one passes the camera every ~16 frames
+        on a long run (KITTI-like traffic cadence)."""
+        rng = np.random.default_rng(seed)
+        boxes = []
+        # "buildings": rows of boxes flanking a corridor along +z
+        for side in (-1.0, 1.0):
+            for i in range(n_rows):
+                z = 4.0 + i * 7.0 + rng.uniform(-1, 1)
+                x = side * (4.5 + rng.uniform(0, 2.0))
+                h = rng.uniform(2.0, 4.0)
+                w = rng.uniform(1.0, 2.5)
+                d = rng.uniform(1.5, 3.0)
+                pose = np.eye(4)
+                pose[:3, 3] = [x, 1.65 - h / 2.0, z]
+                boxes.append(Box(np.array([w / 2, h / 2, d / 2]), pose))
+        # a few low obstacles in the corridor
+        for i in range(max(3, n_rows // 2)):
+            pose = np.eye(4)
+            pose[:3, 3] = [rng.uniform(-2, 2), 1.65 - 0.4, 12.0 + i * 12.0]
+            boxes.append(Box(np.array([0.6, 0.4, 0.9]), pose))
+        if with_dynamic:
+            # a "car" driving ahead of the camera, slightly to the right
+            pose = np.eye(4)
+            pose[:3, 3] = [1.2, 1.65 - 0.75, 9.0]
+            boxes.append(
+                Box(
+                    np.array([0.9, 0.75, 2.1]),
+                    pose,
+                    # 0.85 m/frame ~ 30 km/h at 10 fps: safely above the
+                    # 0.55 m dynamic threshold (Track.h:90-98)
+                    velocity=np.array([0.0, 0.0, 0.85]),
+                    is_dynamic=True,
+                )
+            )
+            if n_dynamic >= 2:
+                # oncoming car in the opposite lane
+                pose2 = np.eye(4)
+                pose2[:3, 3] = [-2.2, 1.65 - 0.75, 16.0]
+                boxes.append(
+                    Box(
+                        np.array([0.9, 0.75, 2.1]),
+                        pose2,
+                        velocity=np.array([0.0, 0.0, -0.9]),
+                        is_dynamic=True,
+                    )
+                )
+            if n_dynamic >= 3:
+                # slower lead car in the outer right lane
+                pose3 = np.eye(4)
+                pose3[:3, 3] = [3.3, 1.65 - 0.75, 12.0]
+                boxes.append(
+                    Box(
+                        np.array([0.9, 0.75, 2.1]),
+                        pose3,
+                        velocity=np.array([0.0, 0.0, 0.7]),
+                        is_dynamic=True,
+                    )
+                )
+            if n_dynamic >= 4:
+                # second oncoming car in the outer left lane
+                pose4 = np.eye(4)
+                pose4[:3, 3] = [-3.4, 1.65 - 0.75, 14.0]
+                boxes.append(
+                    Box(
+                        np.array([0.9, 0.75, 2.1]),
+                        pose4,
+                        velocity=np.array([0.0, 0.0, -0.75]),
+                        is_dynamic=True,
+                    )
+                )
+            for j in range(recurring_oncoming):
+                posej = np.eye(4)
+                posej[:3, 3] = [-2.2, 1.65 - 0.75, 16.0 + 28.0 * (j + 1)]
+                boxes.append(
+                    Box(
+                        np.array([0.9, 0.75, 2.1]),
+                        posej,
+                        velocity=np.array([0.0, 0.0, -0.9]),
+                        is_dynamic=True,
+                    )
+                )
+        return SyntheticScene(boxes=boxes)
+
+
+def _texture(points: np.ndarray, rng_salt: int = 0) -> np.ndarray:
+    """View-independent procedural albedo in [0,1] from world coords.
+
+    Mixes smooth sinusoidal octaves (gradients for subpixel refinement)
+    with hashed cell speckle (corners for feature detection)."""
+    p = points
+    smooth = (
+        0.5
+        + 0.25 * np.sin(3.1 * p[..., 0]) * np.sin(2.3 * p[..., 2])
+        + 0.15 * np.sin(7.7 * p[..., 1] + 1.3 * p[..., 2])
+        + 0.10 * np.sin(13.7 * p[..., 0] + 5.1 * p[..., 1])
+    )
+    cells = np.floor(p * 3.7).astype(np.int64)
+    h = (
+        cells[..., 0] * 73856093
+        ^ cells[..., 1] * 19349663
+        ^ cells[..., 2] * 83492791
+        ^ np.int64(rng_salt)
+    )
+    speckle = ((h & 0xFFFF) / 65535.0 - 0.5) * 0.5
+    return np.clip(smooth + speckle, 0.02, 1.0)
+
+
+def _ray_scene_intersect(
+    origins: np.ndarray, dirs: np.ndarray, scene: SyntheticScene, frame: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Batch ray cast. origins (3,), dirs (..., 3) world-frame.
+
+    Returns (t, hit_points, object_id): t = inf where no hit;
+    object_id -1 = none, 0 = ground, i+1 = scene.boxes[i]."""
+    shape = dirs.shape[:-1]
+    t_best = np.full(shape, np.inf)
+    obj_id = np.full(shape, -1, dtype=np.int32)
+
+    # ground plane y = ground_y
+    dy = dirs[..., 1]
+    t_plane = np.where(
+        np.abs(dy) > 1e-9, (scene.ground_y - origins[1]) / np.where(np.abs(dy) > 1e-9, dy, 1.0), np.inf
+    )
+    hit = (t_plane > 0.1) & (t_plane < scene.max_range)
+    t_best = np.where(hit, t_plane, t_best)
+    obj_id = np.where(hit, 0, obj_id)
+
+    for i, box in enumerate(scene.boxes):
+        T = box.pose_at(frame)
+        R, t0 = T[:3, :3], T[:3, 3]
+        # transform ray to object frame
+        o_loc = R.T @ (origins - t0)
+        d_loc = dirs @ R  # (R.T @ d) for each row
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv_d = 1.0 / np.where(np.abs(d_loc) < 1e-12, 1e-12, d_loc)
+        t1 = (-box.half_extents - o_loc) * inv_d
+        t2 = (box.half_extents - o_loc) * inv_d
+        t_near = np.minimum(t1, t2).max(axis=-1)
+        t_far = np.maximum(t1, t2).min(axis=-1)
+        t_hit = np.where((t_near <= t_far) & (t_far > 0.1), np.maximum(t_near, 0.1), np.inf)
+        better = t_hit < t_best
+        t_best = np.where(better, t_hit, t_best)
+        obj_id = np.where(better, i + 1, obj_id)
+
+    with np.errstate(invalid="ignore"):
+        pts = origins + dirs * t_best[..., None]
+    return t_best, pts, obj_id
+
+
+def render_frame(
+    scene: SyntheticScene,
+    cam_to_world: np.ndarray,
+    intrinsics: Intrinsics,
+    width: int,
+    height: int,
+    frame: int = 0,
+    texture_salt: int = 0,
+    supersample: int = 2,
+) -> dict:
+    """Render one camera view. Returns dict with:
+    gray (H,W) float in [0,1], depth_m (H,W) z-depth (inf = sky),
+    object_id (H,W) int32.
+
+    The image is rendered `supersample`x oversampled and box-averaged —
+    without pixel-area integration, grazing-angle surfaces (the road)
+    alias badly and bias sub-pixel matching, which real cameras don't do.
+    Depth/object ids stay point-sampled at pixel centers (exact GT)."""
+    if supersample > 1:
+        s = supersample
+        # sub-pixel grid centered on the original pixel centers
+        hi_intr = Intrinsics(
+            intrinsics.fx * s, intrinsics.fy * s,
+            intrinsics.cx * s + (s - 1) / 2.0,
+            intrinsics.cy * s + (s - 1) / 2.0,
+        )
+        hi = render_frame(
+            scene, cam_to_world, hi_intr, width * s, height * s,
+            frame, texture_salt, supersample=1,
+        )
+        gray = hi["gray"].reshape(height, s, width, s).mean(axis=(1, 3))
+        lo = render_frame(
+            scene, cam_to_world, intrinsics, width, height,
+            frame, texture_salt, supersample=1,
+        )
+        return {"gray": gray, "depth_m": lo["depth_m"], "object_id": lo["object_id"]}
+
+    fx, fy, cx, cy = intrinsics.as_tuple()
+    u = np.arange(width, dtype=np.float64)
+    v = np.arange(height, dtype=np.float64)
+    uu, vv = np.meshgrid(u, v)
+    rays_cam = np.stack(
+        [(uu - cx) / fx, (vv - cy) / fy, np.ones_like(uu)], axis=-1
+    )
+    R, t = cam_to_world[:3, :3], cam_to_world[:3, 3]
+    rays_world = rays_cam @ R.T
+    t_hit, pts, obj_id = _ray_scene_intersect(t, rays_world, scene, frame)
+
+    # z-depth in camera frame = t_hit * rays_cam_z = t_hit (rays_cam z == 1)
+    depth_m = np.where(np.isfinite(t_hit), t_hit, 0.0)
+
+    # texture in object frame for dynamic boxes so it moves with them
+    tex_pts = np.where(np.isfinite(pts), pts, 0.0)
+    for i, box in enumerate(scene.boxes):
+        if box.is_dynamic:
+            sel = obj_id == i + 1
+            if sel.any():
+                T = box.pose_at(frame)
+                local = (pts[sel] - T[:3, 3]) @ T[:3, :3]
+                tex_pts[sel] = local
+    gray = _texture(tex_pts, texture_salt)
+    gray = np.where(np.isfinite(t_hit), gray, 0.08)  # dark sky
+
+    # simple distance shading for realism
+    shade = np.clip(1.0 - depth_m / (scene.max_range * 1.5), 0.4, 1.0)
+    gray = gray * np.where(depth_m > 0, shade, 1.0)
+    return {"gray": gray, "depth_m": depth_m, "object_id": obj_id}
+
+
+def render_stereo_frame(
+    scene: SyntheticScene,
+    cam_to_world: np.ndarray,
+    intrinsics: Intrinsics,
+    calib: StereoCalibration,
+    width: int,
+    height: int,
+    frame: int = 0,
+) -> dict:
+    """Render a photo-consistent stereo pair. The right camera is the left
+    pose translated +baseline along camera x."""
+    left = render_frame(scene, cam_to_world, intrinsics, width, height, frame)
+    right_pose = cam_to_world.copy()
+    right_pose[:3, 3] = right_pose[:3, 3] + cam_to_world[:3, 0] * calib.baseline_m
+    right = render_frame(scene, right_pose, intrinsics, width, height, frame)
+
+    disparity = np.where(
+        left["depth_m"] > 0, calib.bf / np.maximum(left["depth_m"], 1e-6), 0.0
+    )
+    return {
+        "left_gray": left["gray"],
+        "right_gray": right["gray"],
+        "depth_m": left["depth_m"],
+        "disparity": disparity.astype(np.float32),
+        "object_id": left["object_id"],
+    }
+
+
+def straight_trajectory(
+    num_frames: int, speed: float = 0.35, yaw_rate: float = 0.002
+) -> np.ndarray:
+    """(N,4,4) cam-to-world poses: forward motion with gentle yaw."""
+    poses = np.zeros((num_frames, 4, 4))
+    pos = np.zeros(3)
+    yaw = 0.0
+    for i in range(num_frames):
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        T = np.eye(4)
+        T[:3, :3] = R
+        T[:3, 3] = pos
+        poses[i] = T
+        pos = pos + R @ np.array([0.0, 0.0, speed])
+        yaw += yaw_rate
+    return poses
+
+
+def to_uint8_rgb(gray: np.ndarray) -> np.ndarray:
+    g = np.clip(gray * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    return np.stack([g, g, g], axis=-1)

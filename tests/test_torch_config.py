@@ -1,0 +1,40 @@
+"""The port's configuration copy (``dynslam_tpu_torch/config.py``) keeps
+the JAX package's field names and defaults, so a configuration means the
+same on both sides and the JAX objects can be passed to the port."""
+
+import dataclasses
+
+import pytest
+
+from dynslam_tpu import config as jax_config
+from dynslam_tpu_torch import config as port_config
+
+CLASSES = ["StereoCalibration", "Intrinsics", "SceneParams",
+           "VoxelDecayParams", "MapParams", "VisualOdometryParams",
+           "StereoMatcherParams", "DynSlamConfig"]
+
+
+@pytest.mark.parametrize("name", CLASSES)
+def test_fields_and_defaults_match(name):
+    port_cls = getattr(port_config, name)
+    jax_fields = {f.name: f for f in dataclasses.fields(
+        getattr(jax_config, name))}
+    port_obj, jax_obj = port_cls(), getattr(jax_config, name)()
+    for f in dataclasses.fields(port_cls):
+        assert f.name in jax_fields, f.name
+        assert f.type == jax_fields[f.name].type, f.name
+        pv, jv = getattr(port_obj, f.name), getattr(jax_obj, f.name)
+        if dataclasses.is_dataclass(pv):
+            assert dataclasses.asdict(pv).items() <= dataclasses.asdict(
+                jv).items(), f.name
+        else:
+            assert pv == jv, f.name
+
+
+def test_derived_values_match():
+    assert port_config.StereoCalibration().bf == jax_config.StereoCalibration().bf
+    assert port_config.Intrinsics().as_tuple() == \
+        jax_config.Intrinsics().as_tuple()
+    assert port_config.SceneParams().block_size_m == \
+        jax_config.SceneParams().block_size_m
+    assert port_config.VOXEL_BLOCK_SIZE == jax_config.VOXEL_BLOCK_SIZE

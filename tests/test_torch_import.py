@@ -1,0 +1,60 @@
+"""The port imports torch and never jax: ``import dynslam_tpu_torch`` and
+every module of the static slice leave no ``jax*`` module, and nothing of
+the JAX package ``dynslam_tpu``, loaded. Checked in a fresh interpreter,
+because this test process imports jax (``tests/conftest.py``)."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "dynslam_tpu_torch"
+
+SLICE_MODULES = [
+    "dynslam_tpu_torch",
+    "dynslam_tpu_torch.device",
+    "dynslam_tpu_torch.config",
+    "dynslam_tpu_torch.convert",
+    "dynslam_tpu_torch.io.synthetic",
+    "dynslam_tpu_torch.utils.se3",
+    "dynslam_tpu_torch.ops.cuda_build",
+    "dynslam_tpu_torch.ops.depth",
+    "dynslam_tpu_torch.ops.tsdf",
+    "dynslam_tpu_torch.ops.integrate",
+    "dynslam_tpu_torch.ops.raycast",
+    "dynslam_tpu_torch.ops.stereo",
+    "dynslam_tpu_torch.ops.features",
+    "dynslam_tpu_torch.ops.egomotion",
+    "dynslam_tpu_torch.ops.icp",
+    "dynslam_tpu_torch.pipeline.fused",
+    "dynslam_tpu_torch.pipeline.builder",
+]
+
+
+def test_slice_modules_import_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'dynslam_tpu') "
+        "or k.startswith(('jax.', 'jaxlib', 'flax', 'dynslam_tpu.')))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize(
+    "path",
+    # _build/ holds what the package builds at run time, not its sources
+    sorted(p for p in PKG.rglob("*.py") if "_build" not in p.parts),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_in_source(path):
+    text = path.read_text()
+    assert not re.search(
+        r"^\s*(from|import)\s+(jax|dynslam_tpu)\b(?!_torch)", text, re.M), path
