@@ -83,6 +83,30 @@ class MapParams:
 
 
 @dataclass(frozen=True)
+class InstanceMapParams:
+    """Per-object volumes (InstanceReconstructor.cpp:365-401): one pooled
+    volume per reconstructed object, ``max_objects`` of them."""
+
+    voxel_size_m: float = 0.035
+    mu_m: float = 1.0
+    max_weight: int = 100
+    #: pooled object volumes (the pool's slot axis S)
+    max_objects: int = 8
+    #: mask slots a frame (K: cut/remove and object RANSAC), at most 32
+    max_detections: int = 16
+    blocks_per_object: int = 2048
+    local_dims: Tuple[int, int, int] = (64, 24, 80)
+    max_new_blocks_per_frame: int = 1024
+    raycast_coarse_steps: int = 20
+    raycast_fine_steps: int = 16
+    #: (rows, cols) of the bbox-centred fusion crop, clamped to the frame
+    fusion_crop: Tuple[int, int] = (256, 512)
+    #: masks whose bbox exceeds the crop: True fuses the full masked frame
+    #: instead, False fuses the truncated crop and counts the lost pixels
+    oversize_mask_fallback: bool = True
+
+
+@dataclass(frozen=True)
 class VisualOdometryParams:
     """Sparse scene flow / egomotion (the libviso2 equivalents)."""
 
@@ -120,8 +144,32 @@ class StereoMatcherParams:
 
 
 @dataclass(frozen=True)
+class TrackerParams:
+    """Instance tracker and track state machine (InstanceTracker.h:21-26,
+    Track.h:88-98, Track.cpp:167-209)."""
+
+    score_threshold: float = 0.10
+    inactive_frame_threshold: int = 50
+    #: fewest masked scene-flow vectors an object motion needs
+    min_flow_vectors: int = 18
+    #: RANSAC hypotheses, IRLS rounds and final GN steps of the per-object
+    #: motion estimate
+    object_ransac_iters: int = 200
+    object_irls_rounds: int = 2
+    object_gn_iters: int = 4
+    trans_error_threshold_low: float = 0.030
+    trans_error_threshold_high: float = 0.550
+    max_uncertain_frames_static: int = 5
+    max_uncertain_frames_dynamic: int = 1
+    min_detection_size_px: int = 45
+    copy_mask_scale: float = 1.0
+    delete_mask_scale: float = 1.2
+    conservative_mask_scale: float = 0.97
+
+
+@dataclass(frozen=True)
 class DynSlamConfig:
-    """The top-level fields the static slice reads."""
+    """The top-level fields the static and dynamic slices read."""
 
     frame_width: int = 1242
     frame_height: int = 375
@@ -130,8 +178,14 @@ class DynSlamConfig:
     scene: SceneParams = field(default_factory=SceneParams)
     decay: VoxelDecayParams = field(default_factory=VoxelDecayParams)
     map: MapParams = field(default_factory=MapParams)
+    instance_map: InstanceMapParams = field(default_factory=InstanceMapParams)
     vo: VisualOdometryParams = field(default_factory=VisualOdometryParams)
     stereo: StereoMatcherParams = field(default_factory=StereoMatcherParams)
+    tracker: TrackerParams = field(default_factory=TrackerParams)
+    #: reconstruct moving objects in volumes of their own
+    dynamic_mode: bool = True
+    #: reconstruct every recognised car, moving or parked
+    always_reconstruct_objects: bool = True
     #: depth provider clamps: 0 = invalid
     min_depth_m: float = 0.5
     max_depth_m: float = 20.0

@@ -1,10 +1,12 @@
 """Carry state between the JAX package and the port as numpy arrays.
 
 Names follow the JAX package's fields: ``TsdfState``'s for the map, and
-for a fused-pipeline carry the dotted paths of ``FusedCarry`` in the
-order ``jax.tree_util.tree_leaves`` flattens it (``FUSED_CARRY_KEYS``),
-so the ``leaf_<i>`` arrays of ``pipeline/checkpoint.py``'s fused npz map
-onto them by position.
+for a fused-pipeline carry the dotted paths of ``FusedCarry`` (or
+``FusedDynCarry``) in the order ``jax.tree_util.tree_leaves`` flattens it
+(``FUSED_CARRY_KEYS``, ``FUSED_DYN_CARRY_KEYS``), so the ``leaf_<i>``
+arrays of ``pipeline/checkpoint.py``'s fused npz map onto them by
+position. The dynamic carry's ``inst.*`` arrays are the stacked (S, ...)
+object pool.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from dynslam_tpu_torch.ops.features import Features
 from dynslam_tpu_torch.ops.tsdf import TsdfConfig, TsdfState
 from dynslam_tpu_torch.pipeline.fused import FusedCarry
+from dynslam_tpu_torch.pipeline.fused_dynamic import FusedDynCarry
 
 STATE_KEYS = tuple(f.name for f in dataclasses.fields(TsdfState))
 _FEATURE_KEYS = Features._fields
@@ -29,6 +32,14 @@ FUSED_CARRY_KEYS = (
     "prev_lg", "prev_rg", "frame_idx", "dropped", "origin", "grid",
     "prev_rc_points", "prev_rc_hit",
 )
+FUSED_DYN_CARRY_KEYS = (
+    *FUSED_CARRY_KEYS,
+    *(f"inst.{k}" for k in STATE_KEYS),
+    "inst_fidx", "pending_depth", "pending_rgb", "pending_org",
+    "prev_pending_depth", "prev_pending_rgb", "prev_pending_org",
+)
+#: dynamic-carry fields the port keeps as host numpy
+_HOST_DYN_KEYS = ("inst_fidx", "pending_org", "prev_pending_org")
 
 
 def tsdf_config_from_jax(cfg) -> TsdfConfig:
@@ -86,4 +97,30 @@ def fused_carry_to_numpy(carry: FusedCarry) -> Dict[str, np.ndarray]:
             v = getattr(carry, k)
             out[k] = v.cpu().numpy() if torch.is_tensor(v) \
                 else np.int32(v)
+    return out
+
+
+def fused_dyn_carry_from_numpy(arrays: Mapping[str, np.ndarray],
+                               device) -> FusedDynCarry:
+    """A port dynamic carry from arrays keyed by ``FUSED_DYN_CARRY_KEYS``."""
+    static = fused_carry_from_numpy(arrays, device)
+    rest = {k: (np.array(arrays[k], np.int32) if k in _HOST_DYN_KEYS
+                else torch.tensor(np.asarray(arrays[k]), device=device))
+            for k in FUSED_DYN_CARRY_KEYS
+            if "." not in k and k not in FUSED_CARRY_KEYS}
+    return FusedDynCarry(
+        **static._asdict(),
+        inst=tsdf_state_from_numpy(_sub(arrays, "inst"), device), **rest)
+
+
+def fused_dyn_carry_to_numpy(carry: FusedDynCarry) -> Dict[str, np.ndarray]:
+    out = fused_carry_to_numpy(FusedCarry(
+        **{k: getattr(carry, k) for k in FusedCarry._fields}))
+    out.update({f"inst.{k}": v
+                for k, v in tsdf_state_to_numpy(carry.inst).items()})
+    for k in FUSED_DYN_CARRY_KEYS:
+        if "." not in k and k not in out:
+            v = getattr(carry, k)
+            out[k] = v.cpu().numpy() if torch.is_tensor(v) \
+                else np.array(v, np.int32)
     return out

@@ -1,4 +1,5 @@
-// TSDF fusion of one view into the visible voxel blocks (CUDA, sm_90a).
+// TSDF fusion of one view per volume into its visible voxel blocks (CUDA,
+// sm_90a).
 //
 // Replaces the Pallas kernel dynslam_tpu/ops/pallas_integrate.py::
 // integrate_pallas (kernel body _kernel_factory, launched per tier by
@@ -9,12 +10,20 @@
 // SDF mean with the weight capped at max_weight, blend colour where
 // |eta| < mu/4, and set last_seen.
 //
-// Form: one CTA per entry of the visible list, one thread per voxel (512
-// threads). Each thread projects its voxel, reads depth and RGB straight
-// from global memory (at 1242x375 both planes, ~3.3 MB, stay in L2), and
-// rewrites its packed voxel word and colour word in place. Visible slots
-// are unique, so no two CTAs touch one pool row. The TPU kernel's tiers,
-// compaction, one-hot MXU sampling and tile gates are not needed.
+// Form: a grid of (visible entry, volume), one CTA per entry of a
+// volume's visible list, one thread per voxel (512 threads). The volume
+// axis fuses several maps of one stacked pool (S, P, 512) in one launch,
+// each from its own view: the dynamic step's routed object volumes, each
+// with its own bbox crop (depth, RGB), pose, principal point and frame
+// index. It replaces the JAX package's vmap of the Pallas kernel over the
+// S pooled volumes (fused_dynamic.py:572). The static map and a single
+// object volume are the case of one volume. Each thread projects its
+// voxel, reads depth and RGB straight from global memory (at 1242x375 both
+// planes, ~3.3 MB, stay in L2), and rewrites its packed voxel word and
+// colour word in place. Visible slots are unique within a volume and two
+// volumes are distinct pool slots, so no two CTAs touch one pool row and
+// no atomics are needed. The TPU kernel's tiers, compaction, one-hot MXU
+// sampling and tile gates are not needed.
 //
 // Bound: the 2 x 4 bytes per voxel of pool read + write (plus the
 // gathered pixel, mostly from L2); the arithmetic is a few dozen flops.
@@ -35,25 +44,35 @@ namespace {
 constexpr int kBlock3 = 512;
 
 __global__ void integrate_kernel(
-    int32_t* __restrict__ tsdf_w,              // (P, 512)
-    int32_t* __restrict__ color,               // (P, 512)
-    const int32_t* __restrict__ block_coords,  // (P, 3)
-    int32_t* __restrict__ last_seen,           // (P,)
-    const int32_t* __restrict__ slots,         // (V,)
-    const uint8_t* __restrict__ mask,          // (V,)
-    const float* __restrict__ depth,           // (H, W) metres
-    const uint8_t* __restrict__ rgb,           // (H, W, 3)
-    const float* __restrict__ w2c,             // (4, 4) row-major
-    const float* __restrict__ intr,            // fx, fy, cx, cy
-    const int32_t* __restrict__ frame_idx,     // scalar
+    int32_t* __restrict__ tsdf_w,              // (S, P, 512)
+    int32_t* __restrict__ color,               // (S, P, 512)
+    const int32_t* __restrict__ block_coords,  // (S, P, 3)
+    int32_t* __restrict__ last_seen,           // (S, P)
+    int pool_capacity,                         // P
+    const int32_t* __restrict__ vols,          // (n,) pool slot of volume
+    const int32_t* __restrict__ slots,         // (n, V)
+    const uint8_t* __restrict__ mask,          // (n, V)
+    int n_visible,                             // V
+    const float* __restrict__ depth_all,       // (n, H, W) metres
+    const uint8_t* __restrict__ rgb_all,       // (n, H, W, 3)
+    const float* __restrict__ w2c_all,         // (n, 4, 4) row-major
+    const float* __restrict__ intr_all,        // (n, 4) fx, fy, cx, cy
+    const int32_t* __restrict__ frame_all,     // (n,)
     int img_h, int img_w, float voxel, float mu, float inv_mu,
     float mu_quarter, float inv_1000, float inv_sdf_scale, float max_weight,
     float min_depth, float max_depth, int depth_weighting) {
-  const int b = blockIdx.x;
-  if (!mask[b]) return;
-  const int slot = slots[b];
+  const int vol = blockIdx.y;
+  const int64_t entry = static_cast<int64_t>(vol) * n_visible + blockIdx.x;
+  if (!mask[entry]) return;
+  const int64_t slot =
+      static_cast<int64_t>(vols[vol]) * pool_capacity + slots[entry];
   const int i = threadIdx.x;  // voxel index (x * 64 + y * 8 + z)
-  const int64_t row = static_cast<int64_t>(slot) * kBlock3;
+  const int64_t row = slot * kBlock3;
+  const int64_t plane = static_cast<int64_t>(img_h) * img_w;
+  const float* depth = depth_all + vol * plane;
+  const uint8_t* rgb = rgb_all + vol * plane * 3;
+  const float* w2c = w2c_all + vol * 16;
+  const float* intr = intr_all + vol * 4;
 
   const float pwx = ((float)block_coords[3 * slot + 0] * 8.0f
                      + (float)(i >> 6) + 0.5f) * voxel;
@@ -117,22 +136,25 @@ __global__ void integrate_kernel(
   }
   color[row + i] = (q[0] << 16) | (q[1] << 8) | q[2];
 
-  if (i == 0) last_seen[slot] = *frame_idx;
+  if (i == 0) last_seen[slot] = frame_all[vol];
 }
 
 }  // namespace
 
 extern "C" int dynslam_integrate(
     void* tsdf_w, void* color, const void* block_coords, void* last_seen,
-    const void* slots, const void* mask, int n_visible, const void* depth,
-    const void* rgb, const void* w2c, const void* intr, const void* frame_idx,
-    int img_h, int img_w, float voxel, float mu, float inv_mu,
-    float mu_quarter, float inv_1000, float inv_sdf_scale, float max_weight,
-    float min_depth, float max_depth, int depth_weighting, void* stream) {
-  if (n_visible <= 0) return 0;
-  integrate_kernel<<<n_visible, kBlock3, 0, (cudaStream_t)stream>>>(
+    int pool_capacity, const void* vols, int n_vols, const void* slots,
+    const void* mask, int n_visible, const void* depth, const void* rgb,
+    const void* w2c, const void* intr, const void* frame_idx, int img_h,
+    int img_w, float voxel, float mu, float inv_mu, float mu_quarter,
+    float inv_1000, float inv_sdf_scale, float max_weight, float min_depth,
+    float max_depth, int depth_weighting, void* stream) {
+  if (n_visible <= 0 || n_vols <= 0) return 0;
+  const dim3 grid(n_visible, n_vols);
+  integrate_kernel<<<grid, kBlock3, 0, (cudaStream_t)stream>>>(
       (int32_t*)tsdf_w, (int32_t*)color, (const int32_t*)block_coords,
-      (int32_t*)last_seen, (const int32_t*)slots, (const uint8_t*)mask,
+      (int32_t*)last_seen, pool_capacity, (const int32_t*)vols,
+      (const int32_t*)slots, (const uint8_t*)mask, n_visible,
       (const float*)depth, (const uint8_t*)rgb, (const float*)w2c,
       (const float*)intr, (const int32_t*)frame_idx, img_h, img_w, voxel, mu,
       inv_mu, mu_quarter, inv_1000, inv_sdf_scale, max_weight, min_depth,

@@ -10,6 +10,7 @@ from __future__ import annotations
 import functools
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -30,6 +31,18 @@ def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
         return tuple(freeze(x) for x in v) if isinstance(v, (list, tuple)) \
             else v
     return _constant(freeze(values), dtype, torch.device(device))
+
+
+def upload(array, device) -> torch.Tensor:
+    """A host numpy array as a tensor on ``device`` without a host sync:
+    to a CUDA device through pinned memory and a non-blocking copy (the
+    caching host allocator keeps the pinned block until the copy ran);
+    on the CPU a copy."""
+    t = torch.from_numpy(np.array(array, copy=True))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -135,19 +135,103 @@ def _gn_solve(tr, pts, flow, weights, fx, cu, cv, baseline, iters: int):
 
 def draw_sample_ids(valid: torch.Tensor, iters: int,
                     generator: Optional[torch.Generator]) -> torch.Tensor:
-    """(iters, 3) distinct valid match indices per hypothesis: Gumbel
-    top-3 over the valid matches (argmax passes, first index on ties)."""
-    n = valid.shape[0]
-    u = torch.rand(iters, n, generator=generator, device=valid.device)
+    """(..., iters, 3) distinct valid match indices per hypothesis for
+    (..., N) ``valid``: Gumbel top-3 over the valid matches (argmax
+    passes, first index on ties)."""
+    n = valid.shape[-1]
+    u = torch.rand(*valid.shape[:-1], iters, n, generator=generator,
+                   device=valid.device)
     g = -torch.log(-torch.log(u.clamp(min=1e-20)))
-    g = torch.where(valid[None], g, float("-inf"))
+    g = torch.where(valid[..., None, :], g, float("-inf"))
     lane = torch.arange(n, device=valid.device)
     ids = []
     for _ in range(3):
-        i = torch.argmax(g, dim=1)
+        i = torch.argmax(g, dim=-1)
         ids.append(i)
-        g = torch.where(lane[None] == i[:, None], float("-inf"), g)
-    return torch.stack(ids, 1)
+        g = torch.where(lane == i[..., None], float("-inf"), g)
+    return torch.stack(ids, -1)
+
+
+def _pick(x: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+    """x[k, best[k]] for (K, iters, ...) ``x`` and (K,) ``best``, on the
+    device (indexing with a tensor index read on the host would sync)."""
+    idx = best.view(-1, 1, *([1] * (x.dim() - 2)))
+    return x.gather(1, idx.expand(-1, 1, *x.shape[2:]))[:, 0]
+
+
+def estimate_motion_many(
+    flow: torch.Tensor,  # (K, N, 8) RawFlow rows, one set per mask
+    valid: torch.Tensor,  # (K, N) bool
+    calib_vec: torch.Tensor,  # (4,): fx, cu, cv, baseline
+    initial_tr: torch.Tensor,  # (K, 6) warm starts
+    params: VisualOdometryParams,
+    generator: Optional[torch.Generator] = None,
+    sample_ids: Optional[torch.Tensor] = None,  # (K, iters, 3) int
+) -> MotionEstimate:
+    """K independent estimates in one batch — the counterpart of the JAX
+    package's ``jax.vmap`` of ``estimate_motion`` over mask slots. Every
+    field of the result has a leading K axis."""
+    fx, cu, cv, baseline = (calib_vec[0], calib_vec[1], calib_vec[2],
+                            calib_vec[3])
+    pts = triangulate_prev(flow, fx, cu, cv, baseline)  # (K, N, 3)
+    vweights = valid.to(torch.float32)
+    n_valid = vweights.sum(-1)
+    # viso2-style column weighting: matches near the principal column
+    # carry more weight
+    col_w = 1.0 / ((flow[..., 4] - cu).abs() / cu.abs() + 0.05)
+
+    if sample_ids is None:
+        sample_ids = draw_sample_ids(valid, params.ransac_iters, generator)
+    sample_ids = sample_ids.to(device=flow.device, dtype=torch.int64)
+    K, iters = sample_ids.shape[:2]
+
+    def rows(x):  # (K, N, ...) -> (K, iters, 3, ...) at the draws
+        flat = sample_ids.reshape(K, -1)
+        idx = flat.view(K, -1, *([1] * (x.dim() - 2))).expand(
+            -1, -1, *x.shape[2:])
+        return x.gather(1, idx).reshape(K, iters, 3, *x.shape[2:])
+
+    trs = _gn_solve(initial_tr[:, None].expand(K, iters, 6), rows(pts),
+                    rows(flow), rows(vweights), fx, cu, cv, baseline,
+                    iters=6)  # (K, iters, 6)
+
+    thresh = params.inlier_threshold_px ** 2 * 4.0
+
+    def inliers(tr, p, f, v):
+        r = _residuals(tr, p, f, fx, cu, cv, baseline)
+        return ((r * r).sum(-1) < thresh) & v
+
+    # every hypothesis at once: (K, iters, N)
+    inl_masks = inliers(trs, pts[:, None], flow[:, None], valid[:, None])
+    # first maximum, as jnp.argmax
+    best = torch.argmax(inl_masks.sum(-1), dim=-1)  # (K,)
+    w_base = _pick(inl_masks, best).to(torch.float32) * col_w
+    tr_final = _gn_solve(_pick(trs, best), pts, flow, w_base,
+                         fx, cu, cv, baseline, iters=params.gn_iters)
+
+    # Tukey-biweight IRLS rounds; a mask keeps its previous weights when a
+    # round would leave it fewer than 6 supported matches
+    c2 = params.tukey_c_px * params.tukey_c_px
+    w_prev = w_base
+    for _ in range(params.irls_rounds):
+        r = _residuals(tr_final, pts, flow, fx, cu, cv, baseline)
+        rn2 = (r * r).sum(-1) / c2
+        wt = w_base * torch.square(torch.clamp(1.0 - rn2, min=0.0))
+        wt = torch.where((wt > 0.0).sum(-1, keepdim=True) >= 6, wt, w_prev)
+        tr_final = _gn_solve(tr_final, pts, flow, wt, fx, cu, cv, baseline,
+                             iters=4)
+        w_prev = wt
+    final_inl = inliers(tr_final, pts, flow, valid)
+    num_inl = final_inl.sum(-1)
+
+    success = (n_valid >= 6) & (num_inl >= 6) \
+        & torch.isfinite(tr_final).all(-1)
+    T = se3.twist_to_transform(tr_final)
+    tr_final = torch.where(success[:, None], tr_final,
+                           torch.zeros_like(tr_final))
+    T = torch.where(success[:, None, None], T,
+                    torch.eye(4, dtype=T.dtype, device=T.device))
+    return MotionEstimate(tr_final, T, final_inl, num_inl, success)
 
 
 def estimate_motion(
@@ -159,54 +243,9 @@ def estimate_motion(
     generator: Optional[torch.Generator] = None,
     sample_ids: Optional[torch.Tensor] = None,  # (iters, 3) int
 ) -> MotionEstimate:
-    fx, cu, cv, baseline = (calib_vec[0], calib_vec[1], calib_vec[2],
-                            calib_vec[3])
-    pts = triangulate_prev(flow, fx, cu, cv, baseline)
-    vweights = valid.to(torch.float32)
-    n_valid = vweights.sum()
-    # viso2-style column weighting: matches near the principal column
-    # carry more weight
-    col_w = 1.0 / ((flow[:, 4] - cu).abs() / cu.abs() + 0.05)
-
-    if sample_ids is None:
-        sample_ids = draw_sample_ids(valid, params.ransac_iters, generator)
-    sample_ids = sample_ids.to(device=flow.device, dtype=torch.int64)
-    iters = sample_ids.shape[0]
-    trs = _gn_solve(initial_tr.expand(iters, 6), pts[sample_ids],
-                    flow[sample_ids], vweights[sample_ids],
-                    fx, cu, cv, baseline, iters=6)  # (iters, 6)
-
-    thresh = params.inlier_threshold_px ** 2 * 4.0
-
-    def inliers(tr):
-        r = _residuals(tr, pts, flow, fx, cu, cv, baseline)
-        return ((r * r).sum(-1) < thresh) & valid
-
-    inl_masks = inliers(trs)  # (iters, N), every hypothesis at once
-    # first maximum, as jnp.argmax; index_select keeps the index on the
-    # device (indexing with a 0-d tensor would read it on the host)
-    best = torch.argmax(inl_masks.sum(1)).reshape(1)
-    w_base = inl_masks.index_select(0, best)[0].to(torch.float32) * col_w
-    tr_final = _gn_solve(trs.index_select(0, best)[0], pts, flow, w_base,
-                         fx, cu, cv, baseline, iters=params.gn_iters)
-
-    # Tukey-biweight IRLS rounds; keep the previous weights when a round
-    # would leave fewer than 6 supported matches
-    c2 = params.tukey_c_px * params.tukey_c_px
-    w_prev = w_base
-    for _ in range(params.irls_rounds):
-        r = _residuals(tr_final, pts, flow, fx, cu, cv, baseline)
-        rn2 = (r * r).sum(-1) / c2
-        wt = w_base * torch.square(torch.clamp(1.0 - rn2, min=0.0))
-        wt = torch.where((wt > 0.0).sum() >= 6, wt, w_prev)
-        tr_final = _gn_solve(tr_final, pts, flow, wt, fx, cu, cv, baseline,
-                             iters=4)
-        w_prev = wt
-    final_inl = inliers(tr_final)
-    num_inl = final_inl.sum()
-
-    success = (n_valid >= 6) & (num_inl >= 6) & torch.isfinite(tr_final).all()
-    T = se3.twist_to_transform(tr_final)
-    tr_final = torch.where(success, tr_final, torch.zeros_like(tr_final))
-    T = torch.where(success, T, torch.eye(4, dtype=T.dtype, device=T.device))
-    return MotionEstimate(tr_final, T, final_inl, num_inl, success)
+    """One estimate: ``estimate_motion_many`` at K = 1."""
+    est = estimate_motion_many(
+        flow[None], valid[None], calib_vec, initial_tr[None], params,
+        generator=generator,
+        sample_ids=None if sample_ids is None else sample_ids[None])
+    return MotionEstimate(*(x[0] for x in est))

@@ -5,23 +5,30 @@ Replaces ``dynslam_tpu/ops/pallas_integrate.py::integrate_pallas``. The
 rule is ``dynslam_tpu/ops/tsdf.py::integrate`` (the oracle, not the
 Pallas kernel, which diverges when its near tier overflows).
 
-``integrate`` dispatches on the device of the pool: CPU tensors take
-``integrate_ref``; CUDA tensors launch the kernel, and a failed build or
-launch raises. Both update the pool IN PLACE (this replaces the JAX
-package's ``donate_argnames``) and return the same state object.
+``integrate`` fuses one view into one map; ``integrate_many`` fuses one
+view into each of n volumes of a stacked pool in one launch (the volume
+axis, the counterpart of the JAX package's vmap over pooled object
+volumes). Both dispatch on the device of the pool: CPU tensors take
+``integrate_ref`` (volume by volume); CUDA tensors launch the kernel, and a
+failed build or launch raises. Both update the pool IN PLACE (this
+replaces the JAX package's ``donate_argnames``) and return it.
+``integrate.launches`` counts the kernel launches of both.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import fields
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
-from dynslam_tpu_torch.device import constant
+from dynslam_tpu_torch.device import constant, upload
 from dynslam_tpu_torch.ops import cuda_build
 from dynslam_tpu_torch.ops.tsdf import (
     BLOCK, BLOCK3, SDF_SCALE, TsdfConfig, TsdfState, fma, frame_tensor,
-    pack_rgb, pack_voxel, recip32, transform_points, unpack_weight,
+    pack_rgb, pack_voxel, pool_slot, recip32, transform_points,
+    unpack_weight,
 )
 
 #: (512, 3) voxel offsets within a block, idx = (x * 8 + y) * 8 + z
@@ -118,45 +125,59 @@ def integrate_ref(
     return state
 
 
-def _integrate_cuda(cfg, state, slots, slots_mask, rgb, depth_m,
-                    world_to_cam, frame_idx, intr4) -> TsdfState:
-    dev = state.device
-    for name, t in (("slots", slots), ("slots_mask", slots_mask),
-                    ("rgb", rgb), ("depth_m", depth_m),
-                    ("world_to_cam", world_to_cam)):
-        if t.device != dev:
-            raise ValueError(f"integrate: {name} on {t.device}, pool on {dev}")
-    img_h, img_w = depth_m.shape
-    if rgb.shape != (img_h, img_w, 3) or rgb.dtype != torch.uint8:
-        raise ValueError(f"integrate: rgb must be uint8 {(img_h, img_w, 3)}")
-    if slots.dim() != 1 or slots_mask.shape != slots.shape:
-        raise ValueError("integrate: slots and slots_mask must be (V,)")
-    if world_to_cam.shape != (4, 4) or (intr4 is not None
-                                        and intr4.shape != (4,)):
-        raise ValueError("integrate: world_to_cam must be (4, 4), intr4 (4,)")
+def _check_pool(cfg: TsdfConfig, pool: TsdfState) -> None:
     P = cfg.pool_capacity
     for name, shape in (("tsdf_w", (P, BLOCK3)), ("color", (P, BLOCK3)),
                         ("block_coords", (P, 3)), ("last_seen", (P,))):
-        t = getattr(state, name)
-        if t.shape != shape or t.dtype != torch.int32 \
+        t = getattr(pool, name)
+        if t.shape[1:] != shape or t.dtype != torch.int32 \
                 or not t.is_contiguous():
             raise ValueError(f"integrate: {name} must be contiguous int32 "
-                             f"{shape}")
+                             f"(S, *{shape})")
+
+
+def _launch(cfg, pool, vols, slots, slots_mask, rgb, depth_m, world_to_cam,
+            intr, frame) -> None:
+    """One launch of the kernel over n volumes of the stacked ``pool``:
+    ``vols`` (n,) int32 pool slots on the device, then per volume its
+    visible list (n, V), view (n, H, W[, 3]), pose (n, 4, 4), intrinsics
+    (n, 4) and frame index (n,)."""
+    dev = pool.device
+    _check_pool(cfg, pool)
+    n = vols.shape[0]
+    for name, t in (("vols", vols), ("slots", slots),
+                    ("slots_mask", slots_mask), ("rgb", rgb),
+                    ("depth_m", depth_m), ("world_to_cam", world_to_cam),
+                    ("intr4", intr), ("frame_idx", frame)):
+        if t.device != dev:
+            raise ValueError(f"integrate: {name} on {t.device}, pool on {dev}")
+        if t.shape[0] != n:
+            raise ValueError(f"integrate: {name} must have {n} volumes")
+    img_h, img_w = depth_m.shape[1:]
+    if rgb.shape != (n, img_h, img_w, 3) or rgb.dtype != torch.uint8:
+        raise ValueError(f"integrate: rgb must be uint8 {(n, img_h, img_w, 3)}")
+    if slots.dim() != 2 or slots_mask.shape != slots.shape:
+        raise ValueError("integrate: slots and slots_mask must be (n, V)")
+    if world_to_cam.shape != (n, 4, 4) or intr.shape != (n, 4):
+        raise ValueError("integrate: world_to_cam must be (n, 4, 4), intr4 "
+                         "(n, 4)")
     slots_i = slots.to(torch.int32).contiguous()
     mask_u8 = slots_mask.to(torch.uint8).contiguous()
+    vols_i = vols.to(torch.int32).contiguous()
     depth_f = depth_m.to(torch.float32).contiguous()
     rgb_c = rgb.contiguous()
     w2c = world_to_cam.to(torch.float32).contiguous()
-    intr = _intr4(cfg, intr4, dev).contiguous()
-    frame = frame_tensor(frame_idx, (1,), dev).contiguous()
+    intr_c = intr.to(torch.float32).contiguous()
+    frame_i = frame.to(torch.int32).contiguous()
     fn = cuda_build.function("integrate", "dynslam_integrate",
-                             "pppppp i ppppp ii fffffffff i p")
+                             "pppp i pi ppi ppppp ii fffffffff i p")
     err = fn(
-        state.tsdf_w.data_ptr(), state.color.data_ptr(),
-        state.block_coords.data_ptr(), state.last_seen.data_ptr(),
-        slots_i.data_ptr(), mask_u8.data_ptr(), slots_i.shape[0],
-        depth_f.data_ptr(), rgb_c.data_ptr(), w2c.data_ptr(),
-        intr.data_ptr(), frame.data_ptr(), img_h, img_w,
+        pool.tsdf_w.data_ptr(), pool.color.data_ptr(),
+        pool.block_coords.data_ptr(), pool.last_seen.data_ptr(),
+        cfg.pool_capacity, vols_i.data_ptr(), n, slots_i.data_ptr(),
+        mask_u8.data_ptr(), slots_i.shape[1], depth_f.data_ptr(),
+        rgb_c.data_ptr(), w2c.data_ptr(), intr_c.data_ptr(),
+        frame_i.data_ptr(), img_h, img_w,
         cfg.voxel_size, cfg.mu, recip32(cfg.mu), cfg.mu * 0.25,
         recip32(1000.0), recip32(SDF_SCALE), cfg.max_weight, cfg.min_depth,
         cfg.max_depth, int(cfg.use_depth_weighting),
@@ -164,7 +185,11 @@ def _integrate_cuda(cfg, state, slots, slots_mask, rgb, depth_m,
     )
     cuda_build.check_launch(err, "integrate")
     integrate.launches += 1
-    return state
+
+
+def _as_pool(state: TsdfState) -> TsdfState:
+    """One map as a pool of one: views with a leading axis of 1."""
+    return TsdfState(*(getattr(state, f.name)[None] for f in fields(state)))
 
 
 def integrate(
@@ -179,16 +204,57 @@ def integrate(
     intr4: Optional[torch.Tensor] = None,
 ) -> TsdfState:
     """Fuse one view into the visible blocks, in place. CPU pool: the
-    plain version; CUDA pool: the kernel (``integrate.launches`` counts
-    its launches)."""
+    plain version; CUDA pool: the kernel at one volume
+    (``integrate.launches`` counts its launches)."""
     dev = state.device
     if dev.type == "cpu":
         return integrate_ref(cfg, state, slots, slots_mask, rgb, depth_m,
                              world_to_cam, frame_idx, intr4)
     if dev.type == "cuda":
-        return _integrate_cuda(cfg, state, slots, slots_mask, rgb, depth_m,
-                               world_to_cam, frame_idx, intr4)
+        _launch(cfg, _as_pool(state),
+                torch.zeros(1, dtype=torch.int32, device=dev), slots[None],
+                slots_mask[None], rgb[None], depth_m[None], world_to_cam[None],
+                _intr4(cfg, intr4, dev)[None],
+                frame_tensor(frame_idx, (1,), dev))
+        return state
     raise ValueError(f"integrate: unsupported device {dev}")
+
+
+def integrate_many(
+    cfg: TsdfConfig,
+    pool: TsdfState,  # stacked (S, P, ...) maps
+    vols: Sequence[int],  # (n,) pool slots to fuse, distinct
+    slots: torch.Tensor,  # (n, V) visible blocks of each
+    slots_mask: torch.Tensor,  # (n, V)
+    rgb: torch.Tensor,  # (n, H, W, 3) uint8
+    depth_m: torch.Tensor,  # (n, H, W) f32
+    world_to_cam: torch.Tensor,  # (n, 4, 4)
+    frame_idx: Sequence[int],  # (n,)
+    intr4: torch.Tensor,  # (n, 4)
+) -> TsdfState:
+    """Fuse one view into each of n volumes of a stacked pool, in place —
+    the volume axis of the kernel, one launch for all n. CPU pool: the
+    plain version, volume by volume."""
+    dev = pool.device
+    if len(set(vols)) != len(vols):
+        raise ValueError("integrate_many: volumes must be distinct")
+    n_pool = pool.tsdf_w.shape[0]
+    if any(not 0 <= s < n_pool for s in vols):
+        raise ValueError(f"integrate_many: volumes {list(vols)} outside the "
+                         f"pool of {n_pool}")
+    if dev.type == "cpu":
+        for i, s in enumerate(vols):
+            integrate_ref(cfg, pool_slot(pool, s), slots[i], slots_mask[i],
+                          rgb[i], depth_m[i], world_to_cam[i], frame_idx[i],
+                          intr4[i])
+        return pool
+    if dev.type == "cuda":
+        if len(vols):
+            _launch(cfg, pool, upload(np.asarray(vols, np.int32), dev), slots,
+                    slots_mask, rgb, depth_m, world_to_cam, intr4,
+                    upload(np.asarray(frame_idx, np.int32), dev))
+        return pool
+    raise ValueError(f"integrate_many: unsupported device {dev}")
 
 
 integrate.launches = 0

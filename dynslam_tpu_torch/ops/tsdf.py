@@ -74,16 +74,17 @@ def unpack_rgb(packed: torch.Tensor) -> torch.Tensor:
 
 
 def compact_mask(mask: torch.Tensor, size: int, fill_value: int) -> torch.Tensor:
-    """Indices of the True entries of a 1-D bool mask, ascending, cut or
-    padded to ``size`` with ``fill_value`` (int64) — ``torch.nonzero``
-    order at a fixed size, without a host sync."""
-    n = mask.shape[0]
-    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    """Indices of the True entries of a bool mask along its last axis,
+    ascending, cut or padded to ``size`` with ``fill_value`` (int64) —
+    ``torch.nonzero`` order at a fixed size, without a host sync."""
+    n = mask.shape[-1]
+    rank = torch.cumsum(mask.to(torch.int64), -1) - 1
     pos = torch.where(mask & (rank < size), rank, size)
-    out = torch.full((size + 1,), fill_value, dtype=torch.int64,
-                     device=mask.device)
-    out.scatter_(0, pos, torch.arange(n, dtype=torch.int64, device=mask.device))
-    return out[:size]
+    out = torch.full((*mask.shape[:-1], size + 1), fill_value,
+                     dtype=torch.int64, device=mask.device)
+    out.scatter_(-1, pos, torch.arange(n, dtype=torch.int64,
+                                       device=mask.device).expand_as(pos))
+    return out[..., :size]
 
 
 @dataclass(frozen=True)
@@ -149,10 +150,12 @@ def create_state(cfg: TsdfConfig, device) -> TsdfState:
     the allocator never hands it out, with far-away coords, so it is never
     in any local window or frustum."""
     P = cfg.pool_capacity
+    # fill_ takes the value as a kernel argument; an element assignment
+    # would copy it from host memory and wait for the stream
     valid = torch.zeros(P, dtype=torch.bool, device=device)
-    valid[P - 1] = True
+    valid[P - 1:].fill_(True)
     coords = torch.zeros(P, 3, dtype=torch.int32, device=device)
-    coords[P - 1] = 1 << 24
+    coords[P - 1:].fill_(1 << 24)
     return TsdfState(
         tsdf_w=torch.full((P, BLOCK3), EMPTY_VOXEL, dtype=torch.int32,
                           device=device),
@@ -163,6 +166,28 @@ def create_state(cfg: TsdfConfig, device) -> TsdfState:
         valid=valid,
         decayed_blocks=torch.zeros((), dtype=torch.int32, device=device),
     )
+
+
+def create_pool(cfg: TsdfConfig, n: int, device) -> TsdfState:
+    """``n`` empty maps stacked on a leading axis (every field gains it):
+    the pooled object volumes of the dynamic step."""
+    one = create_state(cfg, device)
+    return TsdfState(*(getattr(one, f.name).expand(n, *getattr(
+        one, f.name).shape).contiguous() for f in fields(one)))
+
+
+def pool_slot(pool: TsdfState, s: int) -> TsdfState:
+    """Slot ``s`` of a stacked pool as a ``TsdfState`` of views: the
+    in-place updates of ``allocate``, ``decay`` and fusion land in the
+    pool."""
+    return TsdfState(*(getattr(pool, f.name)[s] for f in fields(pool)))
+
+
+def assign_state(dst: TsdfState, src: TsdfState) -> None:
+    """Copy ``src`` into ``dst`` in place (e.g. a fresh map into a pool
+    slot)."""
+    for f in fields(dst):
+        getattr(dst, f.name).copy_(getattr(src, f.name))
 
 
 # ---------------------------------------------------------------------------

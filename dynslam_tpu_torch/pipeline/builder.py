@@ -1,14 +1,18 @@
-"""Build the static frame step from the top-level configuration — the
-port of ``dynslam_tpu/pipeline/builder.py::build_fused``'s static branch
-and ``pipeline/mapping.py::engine_config_from``, without the dataset IO
-(the caller feeds frames to ``FusedPipeline.process_frame``)."""
+"""Build the static and dynamic frame steps from the top-level
+configuration — the port of ``dynslam_tpu/pipeline/builder.py::
+build_fused``, ``pipeline/mapping.py::engine_config_from`` and the
+configuration part of ``FusedDynamicPipeline.__init__``, without the
+dataset IO (the caller feeds frames to ``process_frame``)."""
 
 from __future__ import annotations
+
+import dataclasses
 
 from dynslam_tpu_torch.config import DynSlamConfig, StereoCalibration
 from dynslam_tpu_torch.device import DeviceLike
 from dynslam_tpu_torch.ops.tsdf import TsdfConfig
 from dynslam_tpu_torch.pipeline.fused import FusedPipeline
+from dynslam_tpu_torch.pipeline.fused_dynamic import FusedDynamicPipeline
 
 
 def engine_config_from(config: DynSlamConfig) -> TsdfConfig:
@@ -44,3 +48,58 @@ def build_fused_static(config: DynSlamConfig, calib: StereoCalibration,
     return FusedPipeline(engine_config_from(config), config.stereo,
                          config.vo, config.decay, calib, device=device,
                          seed=seed)
+
+
+def instance_config_from(config: DynSlamConfig) -> TsdfConfig:
+    """An object volume's ``TsdfConfig`` at the full frame (the render
+    configuration; ``build_fused_dynamic`` derives the crop-sized fusion
+    one from it)."""
+    imp = config.instance_map
+    return TsdfConfig(
+        pool_capacity=imp.blocks_per_object,
+        local_dims=imp.local_dims,
+        max_new_blocks=imp.max_new_blocks_per_frame,
+        max_visible_blocks=min(imp.blocks_per_object,
+                               imp.max_new_blocks_per_frame * 2),
+        voxel_size=imp.voxel_size_m,
+        mu=imp.mu_m,
+        max_weight=float(imp.max_weight),
+        min_depth=config.min_depth_m,
+        max_depth=config.max_depth_m,
+        use_depth_weighting=config.map.use_depth_weighting,
+        raycast_coarse_steps=imp.raycast_coarse_steps,
+        raycast_fine_steps=imp.raycast_fine_steps,
+        width=config.frame_width,
+        height=config.frame_height,
+        fx=config.intrinsics.fx,
+        fy=config.intrinsics.fy,
+        cx=config.intrinsics.cx,
+        cy=config.intrinsics.cy,
+    )
+
+
+def build_fused_dynamic(config: DynSlamConfig, calib: StereoCalibration,
+                        device: DeviceLike = None, seed: int = 0,
+                        dispatch_lag: int = 2) -> FusedDynamicPipeline:
+    """The dynamic fused pipeline on ``device`` (CUDA unless the caller
+    passes ``"cpu"``): the static map's configuration, an object volume's
+    at the full frame and at the fusion crop (its frustum test runs in
+    crop pixels), the per-object RANSAC parameters, K mask slots (at
+    least the S volumes: the reference removes every possibly-dynamic
+    detection from the view, reconstructed or not) and S volumes."""
+    imp = config.instance_map
+    icfg = instance_config_from(config)
+    icfg_fuse = dataclasses.replace(
+        icfg, width=min(imp.fusion_crop[1], config.frame_width),
+        height=min(imp.fusion_crop[0], config.frame_height))
+    obj_params = dataclasses.replace(
+        config.vo,
+        ransac_iters=config.tracker.object_ransac_iters,
+        irls_rounds=config.tracker.object_irls_rounds,
+        gn_iters=config.tracker.object_gn_iters,
+    )
+    K = min(max(imp.max_detections, imp.max_objects), 32)
+    return FusedDynamicPipeline(
+        config, calib, engine_config_from(config), icfg, icfg_fuse,
+        obj_params, K, imp.max_objects, device=device, seed=seed,
+        dispatch_lag=dispatch_lag)

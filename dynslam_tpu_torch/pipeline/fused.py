@@ -113,9 +113,106 @@ def motion_with_icp_fallback(est, carry: FusedCarry, depth_m, intr_vec):
 
 
 def _stage(name: str):
-    """A named range for torch.profiler (``chip_smoke.py --profile``
-    tabulates them); next to nothing when no profiler runs."""
+    """A named range for torch.profiler (``chip_smoke.py`` tabulates
+    them); next to nothing when no profiler runs."""
     return torch.profiler.record_function(f"fused_step.{name}")
+
+
+class FrontEnd(NamedTuple):
+    """Stereo depth, sparse scene flow and the camera motion of a frame."""
+
+    depth_m: torch.Tensor  # (H, W) f32
+    cur_l: feat_ops.Features
+    cur_r: feat_ops.Features
+    flow: torch.Tensor  # (N, 8) RawFlow rows
+    valid: torch.Tensor  # (N,) bool
+    est: ego_ops.MotionEstimate  # sparse VO's estimate
+    held: torch.Tensor  # (4, 4) the frame's camera delta
+    pose_w2c: torch.Tensor  # (4, 4)
+    host_syncs: int
+
+
+def front_end(cfg, stereo_params, vo_params, carry, left_gray, right_gray,
+              calib_vec, intr_vec, bf, generator=None,
+              sampler: Optional[Sampler] = None) -> FrontEnd:
+    """Stereo -> depth, features -> circular match -> LK refine, RANSAC
+    egomotion with the ICP fallback; ``carry`` is read, not changed."""
+    with _stage("stereo"):
+        disp = stereo_ops.compute_disparity(left_gray, right_gray,
+                                            stereo_params)
+        depth_m = depth_ops.depth_m_from_mm(depth_ops.depth_mm_from_disparity(
+            disp, bf, cfg.min_depth, cfg.max_depth))
+
+    with _stage("features"):
+        cur_l, cur_r = feat_ops.detect_features_pair(left_gray, right_gray,
+                                                     vo_params)
+        flow, valid = feat_ops.circular_match(cur_l, cur_r, carry.prev_l,
+                                              carry.prev_r, vo_params)
+        flow, valid = _refine_matches(left_gray, right_gray, carry.prev_lg,
+                                      carry.prev_rg, flow, valid, vo_params)
+    with _stage("egomotion"):
+        est = ego_ops.estimate_motion(
+            flow, valid, calib_vec, torch.zeros(6, device=flow.device),
+            vo_params, generator=generator,
+            sample_ids=None if sampler is None else sampler(carry.frame_idx,
+                                                            valid))
+        held, syncs = motion_with_icp_fallback(est, carry, depth_m, intr_vec)
+        pose_w2c = held @ carry.pose_w2c  # new = delta @ old
+    return FrontEnd(depth_m, cur_l, cur_r, flow, valid, est, held, pose_w2c,
+                    syncs)
+
+
+class StaticMap(NamedTuple):
+    """The static map after one frame's allocate, fuse, raycast and decay."""
+
+    state: tsdf.TsdfState
+    grid: torch.Tensor
+    origin: torch.Tensor
+    n_new: torch.Tensor
+    n_drop: torch.Tensor
+    mask: torch.Tensor  # (V,) visible blocks fused this frame
+    raycast: Raycast
+    n_freed: torch.Tensor
+    host_syncs: int
+
+
+def static_map(cfg, decay_enabled, carry, depth_m, rgb, pose_w2c, intr_vec,
+               max_decay_weight, min_decay_age) -> StaticMap:
+    """Allocate, fuse (K1), raycast (K2) and decay the static map of
+    ``carry`` from one view, in place."""
+    c2w = inverse(pose_w2c)
+    with _stage("allocate"):
+        # origin hysteresis: keep the grid while the camera stays within 4
+        # blocks of its anchor (allocate keeps it fresh); decay frees
+        # slots, so a frame that decays always rebuilds
+        origin_new = tsdf.compute_origin(cfg, c2w)
+        keep = carry.frame_idx > 1 and not decay_enabled \
+            and bool(((origin_new - carry.origin).abs() <= 4).all())
+        syncs = int(carry.frame_idx > 1 and not decay_enabled)
+        state = carry.state
+        if keep:
+            origin, grid = carry.origin, carry.grid
+        else:
+            origin = origin_new
+            grid = tsdf.build_local_grid(cfg, state, origin)
+        state, grid, (n_new, n_drop) = tsdf.allocate(
+            cfg, state, grid, origin, depth_m, c2w, carry.frame_idx)
+        slots, mask = tsdf.visible_blocks(cfg, state, grid, origin, pose_w2c)
+    with _stage("integrate"):
+        integrate(cfg, state, slots, mask, rgb, depth_m, pose_w2c,
+                  carry.frame_idx)
+    with _stage("raycast"):
+        rc = raycast(cfg, state, grid, origin, slots, mask, c2w, intr_vec)
+
+    with _stage("decay"):
+        if decay_enabled:
+            state, n_freed = tsdf.decay(cfg, state, carry.frame_idx + 1,
+                                        max_decay_weight, min_decay_age)
+        else:
+            n_freed = torch.zeros((), dtype=torch.int32,
+                                  device=depth_m.device)
+    return StaticMap(state, grid, origin, n_new, n_drop, mask, rc, n_freed,
+                     syncs)
 
 
 def fused_step(
@@ -138,77 +235,28 @@ def fused_step(
     """One full frame; returns (carry', FusedOutputs). ``carry.state`` is
     updated in place. RANSAC draws come from ``sampler`` when given, else
     from ``generator``."""
-    with _stage("stereo"):
-        disp = stereo_ops.compute_disparity(left_gray, right_gray,
-                                            stereo_params)
-        depth_m = depth_ops.depth_m_from_mm(depth_ops.depth_mm_from_disparity(
-            disp, bf, cfg.min_depth, cfg.max_depth))
-
-    with _stage("features"):
-        cur_l, cur_r = feat_ops.detect_features_pair(left_gray, right_gray,
-                                                     vo_params)
-        flow, valid = feat_ops.circular_match(cur_l, cur_r, carry.prev_l,
-                                              carry.prev_r, vo_params)
-        flow, valid = _refine_matches(left_gray, right_gray, carry.prev_lg,
-                                      carry.prev_rg, flow, valid, vo_params)
-    with _stage("egomotion"):
-        est = ego_ops.estimate_motion(
-            flow, valid, calib_vec, torch.zeros(6, device=flow.device),
-            vo_params, generator=generator,
-            sample_ids=None if sampler is None else sampler(carry.frame_idx,
-                                                            valid))
-        held, syncs = motion_with_icp_fallback(est, carry, depth_m, intr_vec)
-        pose_w2c = held @ carry.pose_w2c  # new = delta @ old
-        c2w = inverse(pose_w2c)
-
-    with _stage("allocate"):
-        # origin hysteresis: keep the grid while the camera stays within 4
-        # blocks of its anchor (allocate keeps it fresh); decay frees
-        # slots, so a frame that decays always rebuilds
-        origin_new = tsdf.compute_origin(cfg, c2w)
-        keep = carry.frame_idx > 1 and not decay_enabled \
-            and bool(((origin_new - carry.origin).abs() <= 4).all())
-        syncs += carry.frame_idx > 1 and not decay_enabled
-        state = carry.state
-        if keep:
-            origin, grid = carry.origin, carry.grid
-        else:
-            origin = origin_new
-            grid = tsdf.build_local_grid(cfg, state, origin)
-        state, grid, (n_new, n_drop) = tsdf.allocate(
-            cfg, state, grid, origin, depth_m, c2w, carry.frame_idx)
-        slots, mask = tsdf.visible_blocks(cfg, state, grid, origin, pose_w2c)
-    with _stage("integrate"):
-        integrate(cfg, state, slots, mask, rgb, depth_m, pose_w2c,
-                  carry.frame_idx)
-    with _stage("raycast"):
-        rc = raycast(cfg, state, grid, origin, slots, mask, c2w, intr_vec)
-
-    next_idx = carry.frame_idx + 1
-    with _stage("decay"):
-        if decay_enabled:
-            state, n_freed = tsdf.decay(cfg, state, next_idx,
-                                        max_decay_weight, min_decay_age)
-        else:
-            n_freed = torch.zeros((), dtype=torch.int32,
-                                  device=depth_m.device)
-
+    fe = front_end(cfg, stereo_params, vo_params, carry, left_gray,
+                   right_gray, calib_vec, intr_vec, bf, generator, sampler)
+    sm = static_map(cfg, decay_enabled, carry, fe.depth_m, rgb, fe.pose_w2c,
+                    intr_vec, max_decay_weight, min_decay_age)
+    state, rc = sm.state, sm.raycast
     carry2 = FusedCarry(
-        state=state, pose_w2c=pose_w2c, held_motion=held, prev_l=cur_l,
-        prev_r=cur_r, prev_lg=left_gray, prev_rg=right_gray,
-        frame_idx=next_idx, dropped=carry.dropped + n_drop, origin=origin,
-        grid=grid, prev_rc_points=rc.points, prev_rc_hit=rc.hit,
+        state=state, pose_w2c=fe.pose_w2c, held_motion=fe.held,
+        prev_l=fe.cur_l, prev_r=fe.cur_r, prev_lg=left_gray,
+        prev_rg=right_gray, frame_idx=carry.frame_idx + 1,
+        dropped=carry.dropped + sm.n_drop, origin=sm.origin, grid=sm.grid,
+        prev_rc_points=rc.points, prev_rc_hit=rc.hit,
     )
     outs = FusedOutputs(
-        raycast=rc, depth_m=depth_m, pose_w2c=pose_w2c,
-        vo_success=est.success, vo_inliers=est.num_inliers,
-        n_new_blocks=n_new, n_freed_blocks=n_freed,
-        fused_voxels=mask.sum(dtype=torch.int32) * tsdf.BLOCK3,
+        raycast=rc, depth_m=fe.depth_m, pose_w2c=fe.pose_w2c,
+        vo_success=fe.est.success, vo_inliers=fe.est.num_inliers,
+        n_new_blocks=sm.n_new, n_freed_blocks=sm.n_freed,
+        fused_voxels=sm.mask.sum(dtype=torch.int32) * tsdf.BLOCK3,
         march_samples=rc.march_samples,
         used_blocks=tsdf.memory_stats(cfg, state)[0],
         # a copy: decay adds to the state's counter in place
         decayed_blocks=state.decayed_blocks.clone(), decay_ran=decay_enabled,
-        host_syncs=syncs,
+        host_syncs=fe.host_syncs + sm.host_syncs,
     )
     return carry2, outs
 
@@ -218,7 +266,9 @@ def _to_device(x, dtype, device, copy: bool) -> torch.Tensor:
     host memory this is a blocking copy (one host sync); a tensor
     already on the device is copied on the device, or not at all."""
     if not torch.is_tensor(x):
-        x = torch.from_numpy(np.asarray(x))
+        # a read-only array (a JAX array's view, say) is copied first:
+        # torch does not take non-writable memory
+        x = torch.from_numpy(np.require(x, requirements="W"))
     return x.to(device=device, dtype=dtype, copy=copy)
 
 

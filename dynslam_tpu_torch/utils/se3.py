@@ -9,6 +9,7 @@ leading batch shape where the JAX package used ``vmap``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dynslam_tpu_torch.device import constant
@@ -92,6 +93,22 @@ def twist_to_transform(tr: torch.Tensor) -> torch.Tensor:
     """viso2 ``transformationVectorToMatrix``: (..., 6) -> (..., 4, 4)."""
     R = euler_to_rot(tr[..., 0], tr[..., 1], tr[..., 2])
     return make_transform(R, tr[..., 3:6])
+
+
+def np_twist_to_transform(tr) -> np.ndarray:
+    """Host-numpy ``twist_to_transform`` of one (6,) twist, in float64 —
+    the tracker's bookkeeping form."""
+    rx, ry, rz, tx, ty, tz = (float(v) for v in tr)
+    sx, cx = np.sin(rx), np.cos(rx)
+    sy, cy = np.sin(ry), np.cos(ry)
+    sz, cz = np.sin(rz), np.cos(rz)
+    Rx = np.array([[1.0, 0.0, 0.0], [0.0, cx, -sx], [0.0, sx, cx]])
+    Ry = np.array([[cy, 0.0, sy], [0.0, 1.0, 0.0], [-sy, 0.0, cy]])
+    Rz = np.array([[cz, -sz, 0.0], [sz, cz, 0.0], [0.0, 0.0, 1.0]])
+    T = np.eye(4)
+    T[:3, :3] = Rx @ Ry @ Rz
+    T[:3, 3] = (tx, ty, tz)
+    return T
 
 
 def inverse(T: torch.Tensor) -> torch.Tensor:

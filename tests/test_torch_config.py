@@ -10,8 +10,9 @@ from dynslam_tpu import config as jax_config
 from dynslam_tpu_torch import config as port_config
 
 CLASSES = ["StereoCalibration", "Intrinsics", "SceneParams",
-           "VoxelDecayParams", "MapParams", "VisualOdometryParams",
-           "StereoMatcherParams", "DynSlamConfig"]
+           "VoxelDecayParams", "MapParams", "InstanceMapParams",
+           "VisualOdometryParams", "StereoMatcherParams", "TrackerParams",
+           "DynSlamConfig"]
 
 
 @pytest.mark.parametrize("name", CLASSES)

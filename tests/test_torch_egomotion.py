@@ -67,3 +67,67 @@ def test_estimate_motion_fails_on_too_few_matches():
                              generator=torch.Generator().manual_seed(0))
     assert not bool(est.success)
     assert torch.equal(est.matrix, torch.eye(4))
+
+
+def test_mask_batched_motion_matches_jax_vmap(frames):
+    """The mask-batched estimator against the JAX dynamic step's
+    ``jax.vmap(per_mask)`` form: K = 3 masks of the frame pair's matches
+    (two column bands and one with too few matches to succeed), each
+    compacted to 256 rows as the step does, with JAX's per-mask draws and
+    the per-object RANSAC parameters; and against K separate single-mask
+    calls of the port."""
+    import dataclasses
+
+    from dynslam_tpu.config import TrackerParams
+    from dynslam_tpu.ops import tsdf as jt
+
+    fr, _ = frames
+    tp = TrackerParams()
+    params = dataclasses.replace(VO, ransac_iters=tp.object_ransac_iters,
+                                 irls_rounds=tp.object_irls_rounds,
+                                 gn_iters=tp.object_gn_iters)
+    J = [jf.detect_features_pair(jnp.asarray(l), jnp.asarray(r), VO)
+         for (l, r) in fr]
+    fj, vj = jf.circular_match(J[1][0], J[1][1], J[0][0], J[0][1], VO)
+    flow = np.asarray(fj).astype(np.float32)
+    valid = np.asarray(vj)
+    u = flow[:, 4]
+    few = np.zeros_like(valid)
+    few[np.flatnonzero(valid)[:4]] = True
+    sels = [valid & (u < 96), valid & (u >= 96), few]
+    assert sels[2].sum() < 6 <= min(sels[0].sum(), sels[1].sum())
+    cap = 256
+    rows, vmasks = [], []
+    for sel in sels:
+        idx = np.asarray(jt.compact_mask(jnp.asarray(sel), cap, 0))
+        rows.append(flow[idx])
+        vmasks.append(np.arange(cap) < sel.sum())
+    flows, vmasks = np.stack(rows), np.stack(vmasks)
+    calib_vec = np.asarray([INTR.fx, INTR.cx, INTR.cy, CALIB.baseline_m],
+                           np.float32)
+    warm = np.zeros((3, 6), np.float32)
+    warm[1, 5] = -0.3
+    keys = jax.random.split(jax.random.PRNGKey(4), 3)
+    est_j = jax.vmap(lambda f, v, k, w: je.estimate_motion(
+        f, v, jnp.asarray(calib_vec), k, w, params))(
+        jnp.asarray(flows), jnp.asarray(vmasks), keys, jnp.asarray(warm))
+    ids = np.stack([jax_sample_ids(keys[j], vmasks[j], params.ransac_iters)
+                    for j in range(3)])
+    est_t = te.estimate_motion_many(
+        torch.tensor(flows), torch.tensor(vmasks), torch.tensor(calib_vec),
+        torch.tensor(warm), params, sample_ids=torch.tensor(ids))
+    assert est_t.tr.shape == (3, 6) and est_t.matrix.shape == (3, 4, 4)
+    assert np.array_equal(np.asarray(est_j.success), est_t.success.numpy())
+    assert est_t.success.tolist() == [True, True, False]
+    assert np.abs(np.asarray(est_j.tr) - est_t.tr.numpy()).max() <= 1e-4
+    assert np.abs(np.asarray(est_j.num_inliers)
+                  - est_t.num_inliers.numpy()).max() <= 2
+    assert torch.equal(est_t.matrix[2], torch.eye(4))
+    for j in range(3):
+        one = te.estimate_motion(
+            torch.tensor(flows[j]), torch.tensor(vmasks[j]),
+            torch.tensor(calib_vec), torch.tensor(warm[j]), params,
+            sample_ids=torch.tensor(ids[j]))
+        assert torch.allclose(one.tr, est_t.tr[j], atol=1e-6), j
+        assert bool(one.success) == bool(est_t.success[j])
+        assert int(one.num_inliers) == int(est_t.num_inliers[j])

@@ -1,6 +1,6 @@
 """The port imports torch and never jax: ``import dynslam_tpu_torch`` and
-every module of the static slice leave no ``jax*`` module, and nothing of
-the JAX package ``dynslam_tpu``, loaded. Checked in a fresh interpreter,
+every module of the static and dynamic slices leave no ``jax*`` module,
+nothing of the JAX package ``dynslam_tpu`` and no ``cv2`` loaded. Checked in a fresh interpreter,
 because this test process imports jax (``tests/conftest.py``)."""
 
 import pathlib
@@ -31,6 +31,12 @@ SLICE_MODULES = [
     "dynslam_tpu_torch.ops.icp",
     "dynslam_tpu_torch.pipeline.fused",
     "dynslam_tpu_torch.pipeline.builder",
+    # the dynamic slice
+    "dynslam_tpu_torch.io.segmentation",
+    "dynslam_tpu_torch.instances.track",
+    "dynslam_tpu_torch.instances.tracker",
+    "dynslam_tpu_torch.ops.masks",
+    "dynslam_tpu_torch.pipeline.fused_dynamic",
 ]
 
 
@@ -39,8 +45,8 @@ def test_slice_modules_import_without_jax():
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k in ('jax', 'dynslam_tpu') "
-        "or k.startswith(('jax.', 'jaxlib', 'flax', 'dynslam_tpu.')))\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'dynslam_tpu', "
+        "'cv2') or k.startswith(('jax.', 'jaxlib', 'flax', 'dynslam_tpu.')))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

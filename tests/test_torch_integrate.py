@@ -104,3 +104,80 @@ def test_integrate_dispatch_cpu_and_refusal():
     with pytest.raises(ValueError, match="unsupported device"):
         ti.integrate(cfg, meta, *(a.to("meta") if torch.is_tensor(a) else a
                                   for a in args))
+
+
+#: (pool slot, crop origin (u0, v0), view) of the volume-axis case: three
+#: volumes of a four-slot pool, each fused from a 64x128 crop of a view
+#: with its principal point shifted by the crop origin
+VOLUMES = ((2, (64, 32), 0), (0, (0, 96), 1), (3, (128, 48), 0))
+CROP_H, CROP_W = 64, 128
+
+
+def test_integrate_many_matches_jax_on_crops(views):  # noqa: F811
+    """The volume axis: ``integrate_many`` fuses n = 3 volumes of a stacked
+    pool, each from its own crop, pose, shifted ``intr4`` and frame index,
+    in one call; each volume is held to ``tsdf.integrate`` at the crop's
+    shape to the single-volume bound, and the slot fused by no volume
+    stays as it was."""
+    import dataclasses
+
+    cfg_j = dataclasses.replace(_cfg(), width=CROP_W, height=CROP_H)
+    cfg = convert.tsdf_config_from_jax(cfg_j)
+    pool = tt.create_pool(cfg, 4, "cpu")
+    fresh = {k: v.copy() for k, v in convert.tsdf_state_to_numpy(
+        tt.pool_slot(pool, 1)).items()}
+    args, jax_states = [], []
+    for frame, (s, (u0, v0), vi) in enumerate(VOLUMES, start=1):
+        depth, rgb, c2w = views[vi]
+        d = np.ascontiguousarray(depth[v0: v0 + CROP_H, u0: u0 + CROP_W])
+        im = np.ascontiguousarray(rgb[v0: v0 + CROP_H, u0: u0 + CROP_W])
+        intr4 = np.asarray([cfg.fx, cfg.fy, cfg.cx - u0, cfg.cy - v0],
+                           np.float32)
+        w2c = np.linalg.inv(c2w).astype(np.float32)
+        js = jt.create_state(cfg_j)
+        o = jt.compute_origin(cfg_j, jnp.asarray(c2w))
+        g = jt.build_local_grid(cfg_j, js, o)
+        js, g, _ = jt.allocate(cfg_j, js, g, o, jnp.asarray(d),
+                               jnp.asarray(c2w), jnp.int32(frame),
+                               intr4=jnp.asarray(intr4))
+        sl, m = jt.visible_blocks(cfg_j, js, g, o, jnp.asarray(w2c),
+                                  intr4=jnp.asarray(intr4))
+        jax_states.append(jt.integrate(
+            cfg_j, js, sl, m, jnp.asarray(im), jnp.asarray(d),
+            jnp.asarray(w2c), jnp.int32(frame), intr4=jnp.asarray(intr4)))
+        st = tt.pool_slot(pool, s)
+        to = tt.compute_origin(cfg, torch.from_numpy(c2w))
+        tg = tt.build_local_grid(cfg, st, to)
+        tt.allocate(cfg, st, tg, to, torch.from_numpy(d),
+                    torch.from_numpy(c2w), frame, intr4=torch.tensor(intr4))
+        tsl, tm = tt.visible_blocks(cfg, st, tg, to, torch.from_numpy(w2c),
+                                    intr4=torch.tensor(intr4))
+        args.append((tsl, tm, torch.from_numpy(im), torch.from_numpy(d),
+                     torch.from_numpy(w2c), frame, torch.tensor(intr4)))
+    slots, masks, rgbs, depths, w2cs, frames, intr4s = zip(*args)
+    out = ti.integrate_many(cfg, pool, [v[0] for v in VOLUMES],
+                            torch.stack(slots), torch.stack(masks),
+                            torch.stack(rgbs), torch.stack(depths),
+                            torch.stack(w2cs), list(frames),
+                            torch.stack(intr4s))
+    assert out is pool  # in place
+    for (s, _, _), js in zip(VOLUMES, jax_states):
+        jn = {k: np.asarray(getattr(js, k)) for k in convert.STATE_KEYS}
+        tn = convert.tsdf_state_to_numpy(tt.pool_slot(pool, s))
+        for k in ("valid", "block_coords", "alloc_frame", "last_seen"):
+            assert np.array_equal(jn[k], tn[k]), (s, k)
+        used = np.nonzero(jn["valid"])[0][:-1]
+        assert used.size > 50, s
+        assert_words_close(jn["tsdf_w"][used], tn["tsdf_w"][used])
+        assert_colors_close(jn["color"][used], tn["color"][used])
+        assert ((tn["tsdf_w"][used] & 0xFFFF) > 0).mean() > 0.2
+    untouched = convert.tsdf_state_to_numpy(tt.pool_slot(pool, 1))
+    for k in convert.STATE_KEYS:
+        assert np.array_equal(untouched[k], fresh[k]), k
+    two = (torch.stack(slots[:2]), torch.stack(masks[:2]),
+           torch.stack(rgbs[:2]), torch.stack(depths[:2]),
+           torch.stack(w2cs[:2]), [1, 2], torch.stack(intr4s[:2]))
+    with pytest.raises(ValueError, match="distinct"):
+        ti.integrate_many(cfg, pool, [0, 0], *two)
+    with pytest.raises(ValueError, match="outside the pool"):
+        ti.integrate_many(cfg, pool, [0, 4], *two)
