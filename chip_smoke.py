@@ -1,28 +1,40 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port ``dynslam_tpu_torch`` on one GPU.
 
-Run from the repository root with no arguments::
+Run from the repository root::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # as a check: no arguments
+    python3 chip_smoke.py --parent DIR         # and time DIR's kernels too
+
+``--parent`` takes a checkout of an earlier commit (at least its
+``dynslam_tpu_torch/csrc/``): its kernels are built beside these and
+timed on the same inputs, in turns (parent, kernel, kernel, parent). A
+parent library with this tree's C ABI (``cuda_build.ABI_VERSION``) is
+called with the same arguments; one with ABI 1 (up to 7c3c753) through
+the argument lists of that ABI; any other ABI raises.
 
 Phases, one line each (any failure raises, so the script exits non-zero
 and never prints its last line):
 
 1. device: a CUDA device is required; prints its name and power limit;
-2. build: compiles the two hand-written kernels ``csrc/integrate.cu`` and
-   ``csrc/raycast.cu`` with nvcc (``sm_90a``, ``-fmad=false``);
+2. build: compiles the hand-written kernels ``csrc/integrate.cu`` and
+   ``csrc/raycast.cu`` with nvcc (``sm_90a``, ``-fmad=false``), one nvcc
+   process per source, all started together; prints registers and spills;
 3. K1: the fusion kernel against its plain PyTorch version
    ``integrate_ref`` on the card, at the bench configuration (1242x375,
-   pool 2**17, local window 160x48x160), and both times;
-4. K2: the raycast kernel against ``raycast_ref`` on the same map;
+   pool 2**17, local window 160x48x160);
+4. K2: the candidate pre-pass against ``candidate_bits_ref`` (the bitmap
+   must be equal bit for bit), then the march kernel against
+   ``raycast_ref`` on the same map;
 5. slice: ``build_fused_static`` at the bench configuration over 8
    synthetic KITTI-size frames, with ``min_decay_age`` lowered to 4 so
-   that decay runs. Checks that both kernels ran once per fused frame, VO,
+   that decay runs. Checks that every kernel ran once per fused frame, VO,
    the trajectory against ground truth, the map and the render, and
    prints the steady-state frame rate and the host syncs per frame;
 6. profile: replays the last two frames under torch.profiler and prints,
-   per stage of ``fused_step``, host time, device kernel time and
-   launches a frame, and the device's idle share;
+   per stage of ``fused_step``, host time, device kernel time, kernel
+   launches and memsets a frame, and the device's idle share; fails if
+   the raycast stage takes more than 8 launches and memsets a frame;
 8. dynamic slice (run before 7 and 9, which check the kernels on its
    inputs): ``build_fused_dynamic`` at bench.py's dynamic configuration
    (K 16 mask slots, S 8 object volumes, 256x512 fusion crops,
@@ -32,19 +44,33 @@ and never prints its last line):
    ``composited_preview`` (K2 renders every object volume). Checks a
    Dynamic track with a volume of > 100 blocks, the drained pending
    buffer, the trajectory, no dropped blocks, the preview's tinted cars
-   and both kernels' launch counts; prints the frame rate over frames 5-9, host syncs a
-   frame (and one frame's sync census), peak memory, and the per-stage
-   profile of frames 10-11;
+   and the kernels' launch counts; prints the frame rate over frames 5-9,
+   host syncs a frame (and one frame's sync census), peak memory, and the
+   per-stage profile of frames 10-11;
 7. K1's volume axis: ``integrate_many`` (one launch over the routed object
    volumes) against ``integrate_ref`` volume by volume, on the largest
-   routed fusion of phase 8, and both times;
-9. K2 on one object volume: ``raycast_instance``'s render from the camera
-   of the track's last fused frame against ``raycast_ref``, and the median
+   routed fusion of phase 8;
+9. the pre-pass and K2 on one object volume: ``raycast_instance``'s
+   render from the camera of the track's last fused frame against
+   ``candidate_bits_ref`` and ``raycast_ref``, and the median
    |depth - ground truth| on that car's pixels beside that of the frame's
    own stereo depth.
 
+Phases 3, 4, 7 and 9 also print each kernel's times: the bare kernel
+(its prepared C call alone, no Python conversion between launches), warm
+(50 back-to-back launches between two CUDA events) and cold (the L2
+flushed by a 128 MB write before each launch, an event pair around each);
+the wrapper's time (the whole Python call, as earlier records gave it);
+the bound (the bytes of the inputs the function reads, each once, plus
+the bytes it writes, over 3.35 TB/s, or operations over 67 TFLOP/s fp32,
+whichever is larger; K1 counts the distinct pixels its voxels project
+to, the march the distinct pool words a replay of ``raycast_ref``
+samples) and the share of it the bare kernel reaches; and the plain
+version's time.
+
 Then it prints the card's name and power limit (nvidia-smi), one JSON
-line with each kernel's launches, error and times, and last
+line with an entry per kernel and path (launches on the main path and a
+frame, error, bare/cold/wrapper/parent times, bound and share), and last
 ``{"ok": true, "device": {...}}``.
 
 The frames of both scenes are rendered with the port's numpy renderer in
@@ -65,6 +91,7 @@ import warnings
 from collections import Counter
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = ROOT / "dynslam_tpu_torch"
@@ -91,6 +118,11 @@ DET_SCORE, DET_MIN_PX = 0.98, 45
 K1_MIN_EXACT = 0.9999  # packed words bit-exact; the rest within 1 quantum
 K2_MIN_HIT_AGREE = 0.999
 K2_MAX_MEDIAN_DEPTH = 1e-4  # m
+#: the raycast stage of a static frame: the pre-pass (bitmap clear and
+#: kernel) and the march (header clear and kernel), and no small ops
+RAYCAST_STAGE_MAX_LAUNCHES = 8
+#: kernel sources under dynslam_tpu_torch/csrc/
+KERNEL_SOURCES = ("integrate", "raycast")
 
 
 def say(phase: str, msg: str) -> None:
@@ -208,13 +240,32 @@ def render_frames(config, sets, cache_dir: Path):
 
 
 # ---------------------------------------------------------------------------
-# timing
+# timing and bounds
 # ---------------------------------------------------------------------------
+
+#: H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM3 bytes
+#: and fp32 operations (outside the tensor cores) a second
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+#: back-to-back launches a bare-kernel time is averaged over, and the size
+#: of the buffer written to flush the 50 MB L2 before each cold launch
+BARE_LAUNCHES = 50
+FLUSH_BYTES = 128 * 2 ** 20
+#: operations counted a unit of work, from the rule each kernel computes:
+#: K1's update of one voxel (projection, gates, weighted means, packing),
+#: one march sample and one pixel's set-up and epilogue, one pre-pass pool
+#: word and one block corner
+OPS_PER_VOXEL = 64
+OPS_PER_SAMPLE = 40
+OPS_PER_PIXEL = 40
+OPS_PER_WORD = 4
+OPS_PER_CORNER = 12
 
 
 def median_ms(fn, reps: int) -> float:
     """Median device time of ``fn`` over ``reps`` calls (CUDA events),
-    after one warm-up call."""
+    after one warm-up call: for a wrapper, the whole Python call (its
+    conversions, allocations and small ops with the kernel)."""
     import torch
 
     fn()
@@ -228,6 +279,274 @@ def median_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bare_ms(launch, flush, n: int = BARE_LAUNCHES):
+    """A kernel's own time from its prepared C call ``launch`` (a
+    ``cuda_build.Launch``: no Python conversion or allocation between
+    launches): (warm, cold) ms a launch. Warm: ``n`` back-to-back launches
+    between two events, divided by ``n``, after 3 warm-up launches. Cold:
+    ``n`` launches, each after a write of ``flush`` (>= 64 MB, which
+    evicts the working set from the 50 MB L2), each between its own event
+    pair; the mean."""
+    import torch
+
+    errs = [launch() for _ in range(3)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        errs.append(launch())
+    end.record()
+    end.synchronize()
+    warm = start.elapsed_time(end) / n
+    pairs = []
+    for i in range(n):
+        flush.fill_(i)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        errs.append(launch())
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    if any(errs):
+        raise RuntimeError(f"bare launches failed: cudaError {set(errs)}")
+    return warm, sum(a.elapsed_time(b) for a, b in pairs) / n
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    HBM bandwidth and the operations over the fp32 peak (ms)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=int(n_bytes), bound_ops=int(n_ops))
+
+
+def k1_pixels(cfg, coords, slots, mask, w2c, intr, h: int, w: int) -> int:
+    """The distinct pixels K1 reads in one view: the nearest pixel
+    (clamped to the image) of every voxel centre of the live visible
+    blocks, projected as ``integrate_ref`` projects it."""
+    import torch
+
+    from dynslam_tpu_torch.ops.integrate import _VOX_OFFSETS
+    from dynslam_tpu_torch.ops.tsdf import BLOCK, fma, transform_points
+
+    c = coords[slots[mask].long()].to(torch.float32)
+    vox = _VOX_OFFSETS.to(device=c.device, dtype=torch.float32)
+    pc = transform_points(w2c, (c[:, None, :] * BLOCK + vox[None] + 0.5)
+                          * cfg.voxel_size)
+    z = torch.clamp(pc[..., 2], min=1e-3)
+    u = torch.round(fma(pc[..., 0] / z, intr[0], intr[2])).to(torch.int32)
+    v = torch.round(fma(pc[..., 1] / z, intr[1], intr[3])).to(torch.int32)
+    px = torch.clamp(v, 0, h - 1) * w + torch.clamp(u, 0, w - 1)
+    return int(torch.unique(px).numel())
+
+
+def integrate_bound(blocks, pixels, n_visible: int) -> dict:
+    """K1 over volumes with ``blocks`` live visible blocks and ``pixels``
+    distinct pixels read (``k1_pixels``) each: every live block's pool
+    rows read and written once (tsdf_w and color, 4 x 2 KB), its
+    coordinates, slot and last_seen; each pixel's depth (f32) and RGB
+    (3 B); every entry's mask byte; each volume's pose, intrinsics and
+    frame."""
+    n = sum(blocks)
+    n_bytes = n * (4 * 512 * 4 + 12 + 4 + 4) + 7 * sum(pixels) \
+        + len(blocks) * (n_visible + 84)
+    return bound(n_bytes, n * 512 * OPS_PER_VOXEL)
+
+
+def march_reads(cfg, state, grid, origin, bits, c2w, intr, ref) -> dict:
+    """The pool words the march reads, counted distinct: ``raycast_ref``'s
+    march (whose outputs and sample count the kernel's equal) replayed
+    over a scene that records the flat voxel index of every sample in a
+    candidate block (an sdf word; for the hit's colour and weight, also
+    the colour word). Each distinct block costs one grid word."""
+    import torch
+
+    from dynslam_tpu_torch.ops import raycast as K2
+
+    class Recording(K2._Scene):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.sdf, self.colour, self.in_cw = [], [], False
+
+        def cand_voxel(self, o, d, t):
+            idx = super().cand_voxel(o, d, t)
+            read = idx[idx >= 0]
+            self.sdf.append(read)
+            if self.in_cw:
+                self.colour.append(read)
+            return idx
+
+        def sample_cw(self, o, d, t):
+            self.in_cw = True
+            try:
+                return super().sample_cw(o, d, t)
+            finally:
+                self.in_cw = False
+
+    cdims = K2.coarse_dims(cfg)
+    coarse = K2.unpack_bits(bits[K2.fine_words(cfg):],
+                            cdims[0] * cdims[1] * cdims[2]).view(cdims)
+    sc = Recording(cfg, state, grid, origin, K2.unpack_bits(bits, cfg.n_cells),
+                   coarse, c2w, intr, K2._march_constants(cfg))
+    out = K2._march_ref(cfg, sc, c2w, intr)
+    if not torch.equal(out.depth, ref.depth) \
+            or int(out.march_samples) != int(ref.march_samples):
+        raise AssertionError("the recording replay differs from raycast_ref")
+    sdf = torch.unique(torch.cat(sc.sdf))
+    return dict(sdf_words=int(sdf.numel()),
+                colour_words=int(torch.unique(torch.cat(sc.colour)).numel()),
+                blocks=int(torch.unique(sdf >> 9).numel()))
+
+
+def march_bound(cfg, n_words: int, reads: dict, samples: int) -> dict:
+    """The march: its outputs written once (depth, points, colour, weight,
+    hit: 24 B a pixel; the 16 B header), the bitmap, the pose, intrinsics
+    and origin read once, and the distinct pool words it reads
+    (``march_reads``: sdf and colour words, a grid word a block)."""
+    n_pix = cfg.height * cfg.width
+    n_bytes = (n_pix * 24 + 16 + n_words * 4 + 64 + 16 + 12
+               + 4 * (reads["sdf_words"] + reads["colour_words"]
+                      + reads["blocks"]))
+    return bound(n_bytes, samples * OPS_PER_SAMPLE + n_pix * OPS_PER_PIXEL)
+
+
+def candidates_bound(n_live: int, n_visible: int, n_words: int) -> dict:
+    """The pre-pass: each live visible block's tsdf_w row (2 KB), its
+    coordinates, slot and grid word; every entry's mask byte; the pose and
+    origin; the bitmap written once."""
+    n_bytes = n_live * (512 * 4 + 12 + 4 + 4) + n_visible + 64 + n_words * 4
+    return bound(n_bytes, n_live * (512 * OPS_PER_WORD
+                                    + 8 * OPS_PER_CORNER))
+
+
+def kernel_times(launch, flush, parent_launch=None) -> dict:
+    """Bare-kernel times of a launch and, when given, of the parent
+    commit's kernel on the same inputs: parent, kernel, kernel, parent in
+    turns, each (warm, cold) the mean of its two turns."""
+    if parent_launch is None:
+        warm, cold = bare_ms(launch, flush)
+        return dict(kernel_ms=warm, kernel_ms_cold=cold,
+                    parent_kernel_ms=None, parent_kernel_ms_cold=None)
+    p1 = bare_ms(parent_launch, flush)
+    k1 = bare_ms(launch, flush)
+    k2 = bare_ms(launch, flush)
+    p2 = bare_ms(parent_launch, flush)
+    return dict(kernel_ms=(k1[0] + k2[0]) / 2,
+                kernel_ms_cold=(k1[1] + k2[1]) / 2,
+                parent_kernel_ms=(p1[0] + p2[0]) / 2,
+                parent_kernel_ms_cold=(p1[1] + p2[1]) / 2)
+
+
+def reads_text(reads: dict) -> str:
+    """The distinct pool words a march reads (``march_reads``)."""
+    return (f"reads {reads['sdf_words']} sdf and {reads['colour_words']} "
+            f"colour words of {reads['blocks']} blocks")
+
+
+def timing_text(r: dict) -> str:
+    """One line of a kernel's times, bound and share."""
+    parent = "" if r["parent_kernel_ms"] is None else (
+        f"; parent kernel {r['parent_kernel_ms']:.4f} ms warm, "
+        f"{r['parent_kernel_ms_cold']:.4f} ms cold")
+    return (f"bare kernel {r['kernel_ms']:.4f} ms warm, "
+            f"{r['kernel_ms_cold']:.4f} ms cold (L2 flushed; means of "
+            f"{BARE_LAUNCHES}); wrapper {r['wrapper_ms']:.4f} ms; bound "
+            f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} "
+            f"({r['bound_bytes'] / 1e6:.2f} MB, {r['bound_ops'] / 1e6:.1f} "
+            f"Mop), share {r['bound_ms'] / r['kernel_ms']:.3f} warm, "
+            f"{r['bound_ms'] / r['kernel_ms_cold']:.3f} cold; plain "
+            f"{r['plain_ms']:.4f} ms{parent}")
+
+
+# ---------------------------------------------------------------------------
+# the parent commit's kernels, for before/after times in one call
+# ---------------------------------------------------------------------------
+
+
+def parent_launch(parent: dict, lib: str, launch, v1=None):
+    """The parent commit's kernel on the inputs of ``launch`` (None without
+    ``parent``). Its library's C ABI (``cuda_build.abi_version``) decides
+    how: this tree's ABI takes ``launch``'s own arguments through the
+    parent's entry of the same name; ABI 1 (the first two slices, up to
+    7c3c753) takes the call ``v1()`` builds, None where that ABI has no
+    such kernel; any other ABI raises."""
+    import ctypes
+
+    from dynslam_tpu_torch.ops import cuda_build
+
+    if not parent:
+        return None
+    path = parent[lib]
+    abi = cuda_build.abi_version(path)
+    if abi == cuda_build.ABI_VERSION:
+        fn = getattr(ctypes.CDLL(str(path)), launch.fn.__name__)
+        fn.argtypes, fn.restype = launch.fn.argtypes, launch.fn.restype
+        return launch._replace(fn=fn)
+    if abi == 1:
+        return v1() if v1 else None
+    raise RuntimeError(f"--parent: {path.name} has C ABI {abi}; this script "
+                       f"times ABI {cuda_build.ABI_VERSION} and 1")
+
+
+def parent_integrate(lib, cfg, pool, vols, slots, mask, depth, rgb, w2c,
+                     intr, frames):
+    """K1's C call in ABI 1 (one CTA per visible entry) on prepared device
+    tensors: ``vols`` (n,) and ``frames`` (n,) int32."""
+    from dynslam_tpu_torch.ops import cuda_build
+    from dynslam_tpu_torch.ops.tsdf import SDF_SCALE, recip32
+
+    import torch
+
+    fn = cuda_build.load(lib, "dynslam_integrate",
+                         "pppp i pi ppi ppppp ii fffffffff i p")
+    h, w = depth.shape[1:]
+    args = (pool.tsdf_w.data_ptr(), pool.color.data_ptr(),
+            pool.block_coords.data_ptr(), pool.last_seen.data_ptr(),
+            cfg.pool_capacity, vols.data_ptr(), vols.shape[0],
+            slots.data_ptr(), mask.data_ptr(), slots.shape[1],
+            depth.data_ptr(), rgb.data_ptr(), w2c.data_ptr(),
+            intr.data_ptr(), frames.data_ptr(), h, w, cfg.voxel_size,
+            cfg.mu, recip32(cfg.mu), cfg.mu * 0.25, recip32(1000.0),
+            recip32(SDF_SCALE), cfg.max_weight, cfg.min_depth,
+            cfg.max_depth, int(cfg.use_depth_weighting),
+            torch.cuda.current_stream().cuda_stream)
+    return cuda_build.Launch(fn, args, (pool, vols, slots, mask, depth, rgb,
+                                        w2c, intr, frames))
+
+
+def parent_raycast(lib, cfg, state, grid, origin, flag, c2w, intr):
+    """K2's C call in ABI 1 (16x16 CTAs, global flag lookups) on prepared
+    device tensors, into outputs of its own."""
+    import torch
+
+    from dynslam_tpu_torch.ops import cuda_build
+    from dynslam_tpu_torch.ops import raycast as K2
+    from dynslam_tpu_torch.ops.tsdf import SDF_SCALE
+
+    fn = cuda_build.load(lib, "dynslam_raycast",
+                         "ppppppp iiiiiii ffffffffffffff pppp p")
+    m = K2._march_constants(cfg)
+    h, w = cfg.height, cfg.width
+    dx, dy, dz = cfg.local_dims
+    outs = [torch.empty(h, w, dtype=t, device=state.device)
+            for t in (torch.float32, torch.int32, torch.float32,
+                      torch.int32)]
+    args = (state.tsdf_w.data_ptr(), state.color.data_ptr(), grid.data_ptr(),
+            flag.data_ptr(), c2w.data_ptr(), intr.data_ptr(),
+            origin.data_ptr(), dx, dy, dz, h, w, m.n_steps, m.max_dda,
+            m.inv_voxel, m.block, 1.0 / SDF_SCALE, m.dt, 1.5 * m.dt,
+            0.25 * m.dt, 0.5 * m.dt, cfg.mu, 0.9 * cfg.mu,
+            2.5 * cfg.voxel_size, m.t_min, m.t_max, m.t_cap,
+            m.t_cap - 1e-3, *(o.data_ptr() for o in outs),
+            torch.cuda.current_stream().cuda_stream)
+    return cuda_build.Launch(fn, args, (state, grid, origin, flag, c2w, intr,
+                                        outs))
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +581,8 @@ def map_scene(cfg, frames, device):
                 mask=mask, rgb=rgb, depth=depth, w2c=w2c, c2w=c2w, frame=1)
 
 
-def check_integrate(cfg, scene, reps: int = 20) -> dict:
-    """K1 against ``integrate_ref`` on the same inputs."""
+def check_integrate(cfg, scene, flush, parent=None, reps: int = 20) -> dict:
+    """K1 against ``integrate_ref`` on the same inputs, and its times."""
     import torch
 
     from dynslam_tpu_torch.ops import integrate as K1
@@ -293,16 +612,122 @@ def check_integrate(cfg, scene, reps: int = 20) -> dict:
         raise AssertionError(f"K1: only {observed:.3f} of voxels observed")
 
     work = s["state"].clone()
-    ms = median_ms(lambda: K1.integrate(cfg, work, *args), reps)
+    wrapper_ms = median_ms(lambda: K1.integrate(cfg, work, *args), reps)
+    largs, kw = K1.single_view_args(cfg, work, *args)
+    launch = K1._launch_args(*largs, **kw)
+    _, pool, vols, sl, mk, rgb, depth, w2c, intr, _ = largs
+
+    def v1():
+        return parent_integrate(
+            parent["integrate"], cfg, pool, vols, sl, mk, depth, rgb, w2c,
+            intr, torch.full((1,), s["frame"], dtype=torch.int32,
+                             device=work.device))
+
+    times = kernel_times(launch, flush,
+                         parent_launch(parent, "integrate", launch, v1))
     plain_ms = median_ms(lambda: K1.integrate_ref(cfg, work, *args), reps)
     n_vis = int(s["mask"].sum())
+    pixels = k1_pixels(cfg, work.block_coords, s["slots"], s["mask"],
+                       s["w2c"], intr[0], *s["depth"].shape)
     return dict(exact=exact, max_abs_err=ds / 32767.0, dw=dw, dcolor=dc,
-                observed=observed, blocks=n_vis, ms=ms, plain_ms=plain_ms)
+                observed=observed, blocks=n_vis, pixels=pixels,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, **times,
+                **integrate_bound([n_vis], [pixels], s["slots"].shape[0]))
 
 
-def check_raycast(cfg, scene, kernel_reps: int = 20,
+def check_candidates(cfg, state, grid, origin, slots, mask, c2w, flush,
+                     parent=None, reps: int = 20, plain_reps: int = 5
+                     ) -> dict:
+    """The pre-pass bitmap against ``candidate_bits_ref`` (exactly), and
+    its times."""
+    import torch
+
+    from dynslam_tpu_torch.ops import raycast as K2
+
+    cargs = (cfg, state, grid, origin, slots, mask, c2w)
+    got = K2.candidate_bits(*cargs)
+    ref = K2.candidate_bits_ref(*cargs)
+    torch.cuda.synchronize()
+    n_bits = got.shape[0] * 32
+    cg, cr = K2.unpack_bits(got, n_bits), K2.unpack_bits(ref, n_bits)
+    n_cand = int(K2.unpack_bits(ref, cfg.n_cells).sum())
+    if not torch.equal(got, ref):
+        raise AssertionError(
+            f"pre-pass bitmap differs from candidate_bits_ref in "
+            f"{int((cg != cr).sum())} of {n_bits} bits ({n_cand} candidate "
+            f"cells in the plain version)")
+    if n_cand == 0:
+        raise AssertionError("pre-pass: no candidate cell")
+    wrapper_ms = median_ms(lambda: K2.candidate_bits(*cargs), reps)
+    launch = K2._candidates_launch(*cargs, torch.empty_like(got))
+    times = kernel_times(launch, flush,
+                         parent_launch(parent, "raycast", launch))
+    plain_ms = median_ms(lambda: K2.candidate_bits_ref(*cargs), plain_reps)
+    n_live = int(mask.sum())
+    return dict(bits=got, n_cand=n_cand, n_live=n_live, max_abs_err=0.0,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, **times,
+                **candidates_bound(n_live, slots.shape[0], got.shape[0]))
+
+
+def compare_march(got, ref, what: str) -> dict:
+    """A march against ``raycast_ref``: hit agreement and median depth
+    error at the thresholds, and the in-kernel epilogue (points, colour,
+    weight) on the pixels whose depth is bit-equal."""
+    import torch
+
+    agree = (got.hit == ref.hit).double().mean().item()
+    both = got.hit & ref.hit
+    dd = (got.depth - ref.depth).abs()[both]
+    med = dd.median().item() if dd.numel() else float("inf")
+    same = (got.hit == ref.hit) & (got.depth == ref.depth)
+    epi = ((got.points == ref.points).all(-1) & (got.color == ref.color)
+           .all(-1) & (got.weight == ref.weight))[same]
+    epi_agree = epi.double().mean().item() if epi.numel() else 0.0
+    if agree < K2_MIN_HIT_AGREE or med > K2_MAX_MEDIAN_DEPTH \
+            or epi_agree < K2_MIN_HIT_AGREE:
+        raise AssertionError(
+            f"{what} disagrees with raycast_ref: hit agreement {agree:.5f} "
+            f"(need >= {K2_MIN_HIT_AGREE}), median |ddepth| {med:.3g} m "
+            f"(need <= {K2_MAX_MEDIAN_DEPTH}), points/colour/weight equal "
+            f"on {epi_agree:.5f} of the equal-depth pixels (need >= "
+            f"{K2_MIN_HIT_AGREE})")
+    return dict(agree=agree, median=med, both=both, epi_agree=epi_agree,
+                max_abs_err=dd.max().item() if dd.numel() else 0.0,
+                samples=int(got.march_samples),
+                ref_samples=int(ref.march_samples),
+                hits=int(got.hit.sum()))
+
+
+def march_times(cfg, state, grid, origin, bits, c2w, intr, flush, pre,
+                parent, cmp, reps: int, plain_reps: int) -> dict:
+    """The march kernel's wrapper, bare, parent and plain times, and its
+    bound from the words this render reads."""
+    import torch
+
+    from dynslam_tpu_torch.ops import raycast as K2
+
+    rargs = (cfg, state, grid, origin, bits, c2w, intr)
+    wrapper_ms = median_ms(lambda: K2._march_cuda(*rargs), reps)
+    out, header = K2.empty_raycast(cfg, state.device)
+    launch = K2._march_launch(*rargs, out, header)
+
+    def v1():
+        flag = K2.candidate_flags(cfg, state, pre["slots"], pre["mask"], c2w)
+        return parent_raycast(parent["raycast"], cfg, state, grid,
+                              origin.to(torch.int32), flag, c2w, intr)
+
+    times = kernel_times(launch, flush,
+                         parent_launch(parent, "raycast", launch, v1))
+    plain_ms = median_ms(lambda: K2.raycast_ref(*rargs), plain_reps)
+    return dict(wrapper_ms=wrapper_ms, plain_ms=plain_ms, **times,
+                **march_bound(cfg, bits.shape[0], cmp["reads"],
+                              cmp["samples"]))
+
+
+def check_raycast(cfg, scene, flush, parent=None, kernel_reps: int = 20,
                   plain_reps: int = 3) -> dict:
-    """K2 against ``raycast_ref`` on the map after K1 fused frame 1."""
+    """The pre-pass and K2 against ``candidate_bits_ref`` and
+    ``raycast_ref`` on the map after K1 fused frame 1."""
     import torch
 
     from dynslam_tpu_torch.ops import integrate as K1
@@ -313,29 +738,25 @@ def check_raycast(cfg, scene, kernel_reps: int = 20,
                          s["rgb"], s["depth"], s["w2c"], s["frame"])
     intr = torch.tensor([cfg.fx, cfg.fy, cfg.cx, cfg.cy],
                         device=state.device)
-    flag = K2.candidate_flags(cfg, state, s["slots"], s["mask"], s["w2c"])
-    rargs = (cfg, state, s["grid"], s["origin"], flag, s["c2w"], intr)
-    got = K2._raycast_cuda(*rargs)
+    pre = check_candidates(cfg, state, s["grid"], s["origin"], s["slots"],
+                           s["mask"], s["c2w"], flush, parent)
+    pre.update(slots=s["slots"], mask=s["mask"])
+    rargs = (cfg, state, s["grid"], s["origin"], pre["bits"], s["c2w"], intr)
+    got = K2._march_cuda(*rargs)
     ref = K2.raycast_ref(*rargs)
     torch.cuda.synchronize()
-    agree = (got.hit == ref.hit).double().mean().item()
-    both = got.hit & ref.hit
-    dd = (got.depth - ref.depth).abs()[both]
-    med = dd.median().item() if dd.numel() else float("inf")
+    cmp = compare_march(got, ref, "K2")
+    cmp["reads"] = march_reads(*rargs, ref)
     hit = got.hit.double().mean().item()
-    if agree < K2_MIN_HIT_AGREE or med > K2_MAX_MEDIAN_DEPTH or hit < 0.3:
-        raise AssertionError(
-            f"K2 disagrees with raycast_ref: hit agreement {agree:.5f} (need"
-            f" >= {K2_MIN_HIT_AGREE}), median |ddepth| {med:.3g} m (need <= "
-            f"{K2_MAX_MEDIAN_DEPTH}), kernel hit fraction {hit:.3f}")
+    if hit < 0.3:
+        raise AssertionError(f"K2: kernel hit fraction {hit:.3f}")
     gt = s["depth"]
-    gt_ok = both & (gt > cfg.min_depth) & (gt < cfg.max_depth)
+    gt_ok = cmp["both"] & (gt > cfg.min_depth) & (gt < cfg.max_depth)
     gt_err = (got.depth - gt).abs()[gt_ok].median().item()
-    ms = median_ms(lambda: K2._raycast_cuda(*rargs), kernel_reps)
-    plain_ms = median_ms(lambda: K2.raycast_ref(*rargs), plain_reps)
-    return dict(agree=agree, median=med, max_abs_err=dd.max().item(),
-                hit=hit, gt_err=gt_err,
-                samples=int(got.march_samples), ms=ms, plain_ms=plain_ms)
+    times = march_times(cfg, state, s["grid"], s["origin"], pre["bits"],
+                        s["c2w"], intr, flush, pre, parent, cmp,
+                        kernel_reps, plain_reps)
+    return dict(cmp, hit=hit, gt_err=gt_err, pre=pre, **times)
 
 
 # ---------------------------------------------------------------------------
@@ -395,6 +816,7 @@ def run_slice(config, frames, device, census_frame=CENSUS_FRAME) -> dict:
         torch.cuda.reset_peak_memory_stats()
 
     K1.integrate.launches = 0
+    K2.candidate_bits.launches = 0
     K2.raycast.launches = 0
     recs, census = [], Counter()
     for i in range(n):
@@ -429,6 +851,7 @@ def run_slice(config, frames, device, census_frame=CENSUS_FRAME) -> dict:
                      f"{rec['decay']}, hit {rec['hit']:.3f}, pose err "
                      f"{err * 100:.2f} cm, branch syncs {rec['syncs']}")
     launches = dict(integrate=K1.integrate.launches,
+                    candidates=K2.candidate_bits.launches,
                     raycast=K2.raycast.launches)
     return dict(pipe=pipe, recs=recs, launches=launches, census=census,
                 peak_gb=(torch.cuda.max_memory_allocated() / 1e9
@@ -481,12 +904,15 @@ def summarize_trace(events, n: int) -> dict:
     """From a chrome trace of ``n`` frames: per stage (the
     ``fused_step.*`` and ``fused_dyn.*`` ranges; the dynamic step's
     ``fused_dyn.static`` holds the static step's allocate, integrate,
-    raycast and decay ranges) [host ms, device kernel ms, launches] a
-    frame, the device's busy and spanned time (us) and the kernel count."""
+    raycast and decay ranges) [host ms, device kernel ms, kernel launches,
+    memsets] a frame, the device's busy and spanned time (us) and the
+    kernel and memset counts (the raycast's bitmap and header clears are
+    memsets)."""
     device = [(e["ts"], e["ts"] + e["dur"]) for e in events
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     kernels = sorted((e["ts"], e["dur"]) for e in events
                      if e.get("cat") == "kernel")
+    memsets = sorted(e["ts"] for e in events if e.get("cat") == "gpu_memset")
     if not kernels:
         raise AssertionError("the profiler recorded no kernel")
     stages = {}
@@ -494,17 +920,18 @@ def summarize_trace(events, n: int) -> dict:
         name = e.get("name", "")
         if not name.startswith(STAGE_PREFIXES):
             continue
-        st = stages.setdefault(name, [0.0, 0.0, 0.0])
+        st = stages.setdefault(name, [0.0, 0.0, 0.0, 0.0])
         if e.get("cat") == "user_annotation":
             st[0] += e["dur"] / 1e3 / n
         elif e.get("cat") == "gpu_user_annotation":
-            inside = [d for t, d in kernels
-                      if e["ts"] <= t < e["ts"] + e["dur"]]
+            t0, t1 = e["ts"], e["ts"] + e["dur"]
+            inside = [d for t, d in kernels if t0 <= t < t1]
             st[1] += sum(inside) / 1e3 / n
             st[2] += len(inside) / n
+            st[3] += sum(t0 <= t < t1 for t in memsets) / n
     span = max(t1 for _, t1 in device) - min(t0 for t0, _ in device)
     return dict(stages=stages, busy=_busy_us(device), span=span,
-                kernels=len(kernels))
+                kernels=len(kernels), memsets=len(memsets))
 
 
 def profile_frames(run_frames, n: int, out_dir: Path, tag: str = "profile",
@@ -524,15 +951,17 @@ def profile_frames(run_frames, n: int, out_dir: Path, tag: str = "profile",
     trace = out_dir / name
     prof.export_chrome_trace(str(trace))
     summary = summarize_trace(json.loads(trace.read_text())["traceEvents"], n)
-    for stage, (host, dev, launches) in sorted(
+    for stage, (host, dev, launches, sets) in sorted(
             summary["stages"].items(), key=lambda kv: -kv[1][0]):
         say(tag, f"{stage:22s} host {host:8.2f} ms, device kernels "
-                 f"{dev:7.2f} ms, {launches:6.0f} launches a frame")
+                 f"{dev:7.2f} ms, {launches:6.0f} launches and {sets:3.0f} "
+                 "memsets a frame")
     busy, span = summary["busy"], summary["span"]
     say(tag, f"{n} frames under torch.profiler: device busy "
              f"{busy / 1e3:.2f} of {span / 1e3:.2f} ms (idle share "
              f"{1.0 - busy / span:.3f}), {summary['kernels'] / n:.0f} "
-             f"kernels a frame; trace in {trace}")
+             f"launches and {summary['memsets'] / n:.0f} memsets a frame; "
+             f"trace in {trace}")
     return summary
 
 
@@ -607,6 +1036,7 @@ def run_dynamic(config, frames, device, out_dir: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     K1.integrate.launches = 0
+    K2.candidate_bits.launches = 0
     K2.raycast.launches = 0
     times, syncs, census = {}, {}, Counter()
 
@@ -642,6 +1072,7 @@ def run_dynamic(config, frames, device, out_dir: Path) -> dict:
     finally:
         fused_dynamic.integrate_many = recorder.fn
     launches = dict(integrate=K1.integrate.launches,
+                    candidates=K2.candidate_bits.launches,
                     raycast=K2.raycast.launches)
     poses_gt = frames["poses"].astype(np.float64)
     # pose_history[k + 1] is frame k's pose (index 0 the identity prior)
@@ -661,8 +1092,9 @@ def check_dynamic(res, frames) -> dict:
     pipe = res["pipe"]
     n = frames["left"].shape[0]
     disp = res["dispatches"]
-    want = dict(raycast=disp + res["rendered"],
-                integrate=disp + res["recorder"].calls)
+    want = dict(integrate=disp + res["recorder"].calls,
+                candidates=disp + res["rendered"],
+                raycast=disp + res["rendered"])
     if res["launches"] != want:
         raise AssertionError(f"dynamic slice launches {res['launches']}, "
                              f"expected {want} ({disp} dispatches, "
@@ -701,11 +1133,15 @@ def check_dynamic(res, frames) -> dict:
                 track=max(dyn, key=lambda tb: tb[1])[0])
 
 
-def check_integrate_many(rec, reps: int = 20, plain_reps: int = 5) -> dict:
+def check_integrate_many(rec, flush, parent=None, reps: int = 20,
+                         plain_reps: int = 5) -> dict:
     """K1's volume axis (one launch over the recorded call's volumes)
-    against ``integrate_ref`` volume by volume, on the same inputs."""
+    against ``integrate_ref`` volume by volume, on the same inputs, and
+    its times."""
+    import numpy as np
     import torch
 
+    from dynslam_tpu_torch.device import upload
     from dynslam_tpu_torch.ops import integrate as K1
     from dynslam_tpu_torch.ops.tsdf import pool_slot
 
@@ -745,17 +1181,32 @@ def check_integrate_many(rec, reps: int = 20, plain_reps: int = 5) -> dict:
         if not torch.equal(getattr(ref, k), getattr(got, k)):
             raise AssertionError(f"K1 volume axis: {k} differs")
     work = rec["pool"].clone()
-    ms = median_ms(lambda: kernel(work), reps)
+    wrapper_ms = median_ms(lambda: kernel(work), reps)
+    dev = work.device
+    vols_t = upload(np.asarray(vols, np.int32), dev)
+    frames_t = upload(np.asarray(frames, np.int32), dev)
+    launch = K1._launch_args(icfg, work, vols_t, slots, masks, rgb, depth,
+                             w2c, intr4, frames_t)
+    old = parent_launch(parent, "integrate", launch, lambda: parent_integrate(
+        parent["integrate"], icfg, work, vols_t, slots, masks, depth, rgb,
+        w2c, intr4, frames_t))
+    times = kernel_times(launch, flush, old)
     plain_ms = median_ms(lambda: plain(work), plain_reps)
-    return dict(vols=vols, blocks=blocks, exact=min(exact),
-                max_abs_err=ds / 32767.0, dw=dw, dcolor=dc, ms=ms,
-                plain_ms=plain_ms)
+    pixels = [k1_pixels(icfg, work.block_coords[s], slots[i], masks[i],
+                        w2c[i], intr4[i], *depth.shape[1:])
+              for i, s in enumerate(vols)]
+    return dict(vols=vols, blocks=blocks, pixels=pixels, exact=min(exact),
+                max_abs_err=ds / 32767.0, dw=dw, dcolor=dc,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, **times,
+                **integrate_bound(blocks, pixels, slots.shape[1]))
 
 
-def check_instance_raycast(pipe, track, frames, kernel_reps: int = 20,
+def check_instance_raycast(pipe, track, frames, flush, parent=None,
+                           kernel_reps: int = 20,
                            plain_reps: int = 3) -> dict:
-    """K2 on the track's object volume from the camera of its last fused
-    frame (``raycast_instance``'s inputs) against ``raycast_ref``."""
+    """The pre-pass and K2 on the track's object volume from the camera of
+    its last fused frame (``raycast_instance``'s inputs) against
+    ``candidate_bits_ref`` and ``raycast_ref``, and their times."""
     import numpy as np
     import torch
 
@@ -775,22 +1226,18 @@ def check_instance_raycast(pipe, track, frames, kernel_reps: int = 20,
     grid = tsdf.build_local_grid(icfg, state, origin)
     w2c = inverse(c2w)
     slots, mask = tsdf.visible_blocks(icfg, state, grid, origin, w2c)
-    flag = K2.candidate_flags(icfg, state, slots, mask, w2c)
-    rargs = (icfg, state, grid, origin, flag, c2w, pipe.intr_vec)
-    got = K2._raycast_cuda(*rargs)
+    pre = check_candidates(icfg, state, grid, origin, slots, mask, c2w,
+                           flush, parent)
+    pre.update(slots=slots, mask=mask)
+    rargs = (icfg, state, grid, origin, pre["bits"], c2w, pipe.intr_vec)
+    got = K2._march_cuda(*rargs)
     ref = K2.raycast_ref(*rargs)
     torch.cuda.synchronize()
-    agree = (got.hit == ref.hit).double().mean().item()
-    both = got.hit & ref.hit
-    dd = (got.depth - ref.depth).abs()[both]
-    med = dd.median().item() if dd.numel() else float("inf")
-    n_hit = int(got.hit.sum())
-    if agree < K2_MIN_HIT_AGREE or med > K2_MAX_MEDIAN_DEPTH or n_hit < 500:
-        raise AssertionError(
-            f"K2 on an object volume disagrees with raycast_ref: hit "
-            f"agreement {agree:.5f} (need >= {K2_MIN_HIT_AGREE}), median "
-            f"|ddepth| {med:.3g} m (need <= {K2_MAX_MEDIAN_DEPTH}), "
-            f"{n_hit} hits (need >= 500)")
+    cmp = compare_march(got, ref, "K2 on an object volume")
+    cmp["reads"] = march_reads(*rargs, ref)
+    if cmp["hits"] < 500:
+        raise AssertionError(f"K2 on an object volume: {cmp['hits']} hits "
+                             "(need >= 500)")
     # the car's pixels in frame f: its object id is the one its copy mask
     # covers most
     objid = frames["objid"][f]
@@ -808,23 +1255,75 @@ def check_instance_raycast(pipe, track, frames, kernel_reps: int = 20,
         icfg.min_depth, icfg.max_depth))
     s_ok = on_car & (sd > 0)
     stereo_err = (sd - gt)[s_ok]
-    ms = median_ms(lambda: K2._raycast_cuda(*rargs), kernel_reps)
-    plain_ms = median_ms(lambda: K2.raycast_ref(*rargs), plain_reps)
-    return dict(agree=agree, median=med,
-                max_abs_err=dd.max().item() if dd.numel() else 0.0,
-                hits=n_hit, car_px=int(on_car.sum()),
+    times = march_times(*rargs, flush, pre, parent, cmp, kernel_reps,
+                        plain_reps)
+    return dict(cmp, pre=pre, car_px=int(on_car.sum()),
                 gt_err=err.abs().median().item(), gt_bias=err.median().item(),
                 stereo_err=stereo_err.abs().median().item(),
                 stereo_bias=stereo_err.median().item(),
-                frame=f, samples=int(got.march_samples), ms=ms,
-                plain_ms=plain_ms, track=track.id)
+                frame=f, track=track.id, **times)
 
 
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def build_kernels(parent: Optional[Path]) -> dict:
+    """Phase 2: every kernel source with nvcc, one process each, all
+    started together; with ``parent`` (a checkout of the parent commit)
+    also the parent's two kernels. Checks that this tree's libraries have
+    its C ABI. Returns the parent's library paths (empty without
+    ``parent``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynslam_tpu_torch.ops import cuda_build
+
+    jobs = [(name, "", cuda_build.CSRC_DIR) for name in KERNEL_SOURCES]
+    if parent is not None:
+        jobs += [(name, "parent ", parent / "dynslam_tpu_torch" / "csrc")
+                 for name in KERNEL_SOURCES]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = list(ex.map(lambda j: cuda_build.build(j[0], j[2]), jobs))
+    libs = {}
+    for (name, tag, _), b in zip(jobs, built):
+        regs = [ln.split("ptxas info    : ")[-1] for ln in b.log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        abi = cuda_build.abi_version(b.path)
+        say("build", f"{tag}{name}: {b.seconds:.2f} s -> {b.path.name}, C "
+                     f"ABI {abi}; {'; '.join(regs) or 'cached'}")
+        if tag:
+            libs[name] = b.path
+        elif abi != cuda_build.ABI_VERSION:
+            raise AssertionError(f"{name}: C ABI {abi}, the wrappers speak "
+                                 f"{cuda_build.ABI_VERSION}")
+    return libs
+
+
+def kernel_entry(name: str, src: dict, launches: int, per_frame: float,
+                 r: dict) -> dict:
+    """One entry of the kernels JSON line."""
+    return dict(name=name, **src, launches=launches,
+                max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=None,
+                kernel_ms=r["kernel_ms"], kernel_ms_cold=r["kernel_ms_cold"],
+                wrapper_ms=r["wrapper_ms"],
+                bound_share=r["bound_ms"] / r["kernel_ms"],
+                bound_share_cold=r["bound_ms"] / r["kernel_ms_cold"],
+                parent_kernel_ms=r["parent_kernel_ms"],
+                parent_kernel_ms_cold=r["parent_kernel_ms_cold"],
+                launches_per_frame=per_frame)
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the parent commit: its kernels are "
+                         "built and timed beside these on the same inputs")
+    args = ap.parse_args(argv)
 
     # 1. device
     if not torch.cuda.is_available():
@@ -849,12 +1348,8 @@ def main() -> int:
     from dynslam_tpu_torch.pipeline.builder import engine_config_from
 
     # 2. build
-    for name in ("integrate", "raycast"):
-        b = cuda_build.build(name)
-        regs = [ln.split("ptxas info    : ")[-1] for ln in b.log.splitlines()
-                if "registers" in ln]
-        say("build", f"{name}: {b.seconds:.2f} s -> {b.path.name}; "
-                     f"{'; '.join(regs) or 'cached'}")
+    parent = build_kernels(args.parent)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=device)
 
     config = bench_config()
     cfg = engine_config_from(config)
@@ -867,22 +1362,29 @@ def main() -> int:
 
     # 3. K1 vs plain
     scene = map_scene(cfg, frames, device)
-    k1 = check_integrate(cfg, scene)
-    say("K1", f"integrate vs integrate_ref on {k1['blocks']} visible blocks: "
+    k1 = check_integrate(cfg, scene, flush, parent)
+    say("K1", f"integrate vs integrate_ref on {k1['blocks']} visible blocks "
+              f"({k1['pixels']} distinct pixels read): "
               f"{k1['exact'] * 100:.4f}% words bit-exact (need >= "
               f"{K1_MIN_EXACT * 100:.2f}%), max |dsdf| {k1['max_abs_err']:.3g}"
-              f", |dw| {k1['dw']} q, |dcolor| {k1['dcolor']}; kernel "
-              f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms (median of "
-              "20)")
+              f", |dw| {k1['dw']} q, |dcolor| {k1['dcolor']}")
+    say("K1", timing_text(k1))
 
-    # 4. K2 vs plain
-    k2 = check_raycast(cfg, scene)
+    # 4. the pre-pass and K2 vs plain
+    k2 = check_raycast(cfg, scene, flush, parent)
+    pre = k2["pre"]
+    say("K2-pre", f"candidate bitmap of the {cfg.local_dims} window equals "
+                  f"candidate_bits_ref exactly ({pre['n_cand']} candidate "
+                  f"cells of {pre['n_live']} visible blocks)")
+    say("K2-pre", timing_text(pre))
     say("K2", f"raycast vs raycast_ref at {W}x{H}: hit agreement "
               f"{k2['agree'] * 100:.4f}%, median |ddepth| {k2['median']:.3g}"
-              f" m, max {k2['max_abs_err']:.3g} m, hit {k2['hit']:.3f}, "
-              f"median |depth - gt| {k2['gt_err']:.4f} m, {k2['samples']} "
-              f"samples; kernel {k2['ms']:.4f} ms (median of 20), plain "
-              f"{k2['plain_ms']:.1f} ms (median of 3)")
+              f" m, max {k2['max_abs_err']:.3g} m, points/colour/weight "
+              f"equal on {k2['epi_agree'] * 100:.4f}% of equal-depth pixels,"
+              f" hit {k2['hit']:.3f}, median |depth - gt| "
+              f"{k2['gt_err']:.4f} m, {k2['samples']} samples (plain "
+              f"{k2['ref_samples']}); {reads_text(k2['reads'])}")
+    say("K2", timing_text(k2))
 
     # 5. slice
     say("slice", f"build_fused_static, bench config with min_decay_age "
@@ -907,9 +1409,18 @@ def main() -> int:
 
     # 6. where the time goes
     lgs, rgs, rgbs = res["frames"]
-    profile_frames(lambda: [res["pipe"].process_frame(lgs[j], rgs[j], rgbs[j])
-                            for j in range(N_FRAMES - 2, N_FRAMES)],
-                   2, cuda_build.BUILD_DIR)
+    prof = profile_frames(
+        lambda: [res["pipe"].process_frame(lgs[j], rgs[j], rgbs[j])
+                 for j in range(N_FRAMES - 2, N_FRAMES)],
+        2, cuda_build.BUILD_DIR)
+    _, _, rc_kernels, rc_memsets = prof["stages"]["fused_step.raycast"]
+    if rc_kernels + rc_memsets > RAYCAST_STAGE_MAX_LAUNCHES:
+        raise AssertionError(
+            f"raycast stage: {rc_kernels:.0f} launches and {rc_memsets:.0f} "
+            f"memsets a frame (at most {RAYCAST_STAGE_MAX_LAUNCHES} in all)")
+    say("profile", f"raycast stage {rc_kernels:.0f} launches and "
+                   f"{rc_memsets:.0f} memsets a frame (at most "
+                   f"{RAYCAST_STAGE_MAX_LAUNCHES} in all)")
     del res, scene
 
     # 8. the dynamic slice (its routed fusions feed phase 7)
@@ -941,31 +1452,45 @@ def main() -> int:
                f"syncs + the packed fetch); all host syncs in frame "
                f"{DYN_CENSUS_FRAME}: {sum(dcensus.values())} "
                f"{dict(dcensus.most_common())}")
+    _, _, rc_kernels, rc_memsets = \
+        dres["profile"]["stages"]["fused_step.raycast"]
+    say("dyn", f"raycast stage {rc_kernels:.0f} launches and "
+               f"{rc_memsets:.0f} memsets a frame")
 
     # 7. K1's volume axis vs plain, on phase 8's largest routed fusion
-    k1v = check_integrate_many(dres["recorder"].best)
+    k1v = check_integrate_many(dres["recorder"].best, flush, parent)
     say("K1-vol", f"integrate_many over {len(k1v['vols'])} object volumes "
-                  f"{k1v['vols']} ({k1v['blocks']} visible blocks) vs "
+                  f"{k1v['vols']} ({k1v['blocks']} visible blocks, "
+                  f"{k1v['pixels']} distinct pixels read) vs "
                   f"integrate_ref per volume: {k1v['exact'] * 100:.4f}% "
                   f"words bit-exact (worst volume; need >= "
                   f"{K1_MIN_EXACT * 100:.2f}%), max |dsdf| "
                   f"{k1v['max_abs_err']:.3g}, |dw| {k1v['dw']} q, |dcolor| "
-                  f"{k1v['dcolor']}; kernel {k1v['ms']:.4f} ms (median of "
-                  f"20), plain {k1v['plain_ms']:.4f} ms (median of 5)")
+                  f"{k1v['dcolor']}")
+    say("K1-vol", timing_text(k1v))
 
-    # 9. K2 on one object volume vs plain
-    k2o = check_instance_raycast(pipe, dyn["track"], dyn_frames)
+    # 9. the pre-pass and K2 on one object volume vs plain
+    k2o = check_instance_raycast(pipe, dyn["track"], dyn_frames, flush,
+                                 parent)
+    opre = k2o["pre"]
+    say("K2-obj-pre", f"candidate bitmap of the {pipe.icfg.local_dims} "
+                      f"window equals candidate_bits_ref exactly "
+                      f"({opre['n_cand']} candidate cells of "
+                      f"{opre['n_live']} visible blocks)")
+    say("K2-obj-pre", timing_text(opre))
     say("K2-obj", f"raycast_instance of track {k2o['track']} from its frame "
                   f"{k2o['frame']} camera vs raycast_ref at {W}x{H}: hit "
                   f"agreement {k2o['agree'] * 100:.4f}%, median |ddepth| "
                   f"{k2o['median']:.3g} m, max {k2o['max_abs_err']:.3g} m, "
+                  f"points/colour/weight equal on "
+                  f"{k2o['epi_agree'] * 100:.4f}% of equal-depth pixels, "
                   f"{k2o['hits']} hits; on {k2o['car_px']} car pixels median "
                   f"|depth - gt| {k2o['gt_err']:.4f} m (median signed "
                   f"{k2o['gt_bias']:+.4f}), the frame's stereo depth "
                   f"{k2o['stereo_err']:.4f} m ({k2o['stereo_bias']:+.4f}); "
-                  f"{k2o['samples']} samples; kernel {k2o['ms']:.4f} ms "
-                  f"(median of 20), plain {k2o['plain_ms']:.1f} ms (median "
-                  f"of 3)")
+                  f"{k2o['samples']} samples (plain {k2o['ref_samples']}); "
+                  f"{reads_text(k2o['reads'])}")
+    say("K2-obj", timing_text(k2o))
 
     k1_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/integrate.cu",
                   replaces="dynslam_tpu/ops/pallas_integrate.py:536")
@@ -974,21 +1499,22 @@ def main() -> int:
     # one entry per kernel and path: the static slice's launches with
     # phases 3-4's times, the dynamic slice's (static map, object volumes
     # and object renders) with phases 7 and 9's
+    fused, disp = N_FRAMES - 1, dres["dispatches"]
+    dl = dres["launches"]
     kernels = [
-        dict(name="integrate", **k1_src, launches=static_launches[
-            "integrate"], max_abs_err=k1["max_abs_err"], ms=k1["ms"],
-             plain_ms=k1["plain_ms"]),
-        dict(name="integrate/volume-axis", **k1_src,
-             launches=dres["launches"]["integrate"],
-             max_abs_err=k1v["max_abs_err"], ms=k1v["ms"],
-             plain_ms=k1v["plain_ms"]),
-        dict(name="raycast", **k2_src, launches=static_launches["raycast"],
-             max_abs_err=k2["max_abs_err"], ms=k2["ms"],
-             plain_ms=k2["plain_ms"]),
-        dict(name="raycast/object-volume", **k2_src,
-             launches=dres["launches"]["raycast"],
-             max_abs_err=k2o["max_abs_err"], ms=k2o["ms"],
-             plain_ms=k2o["plain_ms"]),
+        kernel_entry("integrate", k1_src, static_launches["integrate"],
+                     static_launches["integrate"] / fused, k1),
+        kernel_entry("integrate/volume-axis", k1_src, dl["integrate"],
+                     dl["integrate"] / disp, k1v),
+        kernel_entry("raycast/candidates", k2_src,
+                     static_launches["candidates"],
+                     static_launches["candidates"] / fused, pre),
+        kernel_entry("raycast", k2_src, static_launches["raycast"],
+                     static_launches["raycast"] / fused, k2),
+        kernel_entry("raycast/candidates-object-volume", k2_src,
+                     dl["candidates"], dl["candidates"] / disp, opre),
+        kernel_entry("raycast/object-volume", k2_src, dl["raycast"],
+                     dl["raycast"] / disp, k2o),
     ]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

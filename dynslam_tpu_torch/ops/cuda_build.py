@@ -23,6 +23,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Any, NamedTuple, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -56,10 +57,12 @@ def nvcc_path() -> str:
                        "the dynslam_tpu_torch kernels")
 
 
-def build(name: str) -> BuildResult:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags exists. Raises RuntimeError with nvcc's output on failure."""
-    src = CSRC_DIR / f"{name}.cu"
+def build(name: str, csrc_dir: Path = CSRC_DIR) -> BuildResult:
+    """Compile ``<csrc_dir>/<name>.cu`` (default: the package's own
+    ``csrc/``; another checkout's, to time an earlier commit's kernel)
+    unless a library of the same source and flags exists. Raises
+    RuntimeError with nvcc's output on failure."""
+    src = Path(csrc_dir) / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
@@ -80,19 +83,55 @@ def build(name: str) -> BuildResult:
     return BuildResult(out, seconds, (res.stdout + res.stderr).strip())
 
 
+#: version of the C entries' argument lists: every ``csrc/*.cu`` exports
+#: ``int dynslam_abi_version()`` returning it (the libraries built before
+#: it existed export none and are version 1); change it and the sources
+#: together
+ABI_VERSION = 2
+
+
+def abi_version(path: Path) -> int:
+    """The C ABI version of the kernel library at ``path``."""
+    lib = ctypes.CDLL(str(path))
+    if not hasattr(lib, "dynslam_abi_version"):
+        return 1
+    lib.dynslam_abi_version.restype = ctypes.c_int
+    return lib.dynslam_abi_version()
+
+
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+
+def load(path: Path, name: str, signature: str):
+    """The C entry ``name`` of the shared library at ``path``, with
+    ``argtypes`` from ``signature``: one letter per argument, ``p``
+    pointer (pass ``tensor.data_ptr()``, the stream handle, or None for a
+    null pointer), ``i`` int, ``f`` float. It returns a ``cudaError_t``."""
+    fn = getattr(ctypes.CDLL(str(path)), name)
+    fn.argtypes = [_CTYPES[c] for c in signature.replace(" ", "")]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
 def function(lib: str, name: str, signature: str):
     """The C entry ``name`` of kernel library ``lib`` (built and loaded on
-    first use), with ``argtypes`` from ``signature``: one letter per
-    argument, ``p`` pointer (pass ``tensor.data_ptr()`` or the stream
-    handle), ``i`` int, ``f`` float. It returns a ``cudaError_t``."""
-    fn = getattr(ctypes.CDLL(str(build(lib).path)), name)
-    fn.argtypes = [_CTYPES[c] for c in signature.replace(" ", "")]
-    fn.restype = ctypes.c_int
-    return fn
+    first use); see ``load``."""
+    return load(build(lib).path, name, signature)
+
+
+class Launch(NamedTuple):
+    """One C call with its arguments prepared: calling it runs the kernel
+    (and nothing else) on the stream it was prepared for and returns the
+    ``cudaError_t``. ``keep`` holds the tensors whose pointers ``args``
+    carries."""
+
+    fn: Any
+    args: Tuple
+    keep: Tuple
+
+    def __call__(self) -> int:
+        return self.fn(*self.args)
 
 
 def check_launch(err: int, kernel: str) -> None:

@@ -134,21 +134,30 @@ def _check_pool(cfg: TsdfConfig, pool: TsdfState) -> None:
                 or not t.is_contiguous():
             raise ValueError(f"integrate: {name} must be contiguous int32 "
                              f"(S, *{shape})")
+    # pool rows move as 16-byte vectors
+    if pool.tsdf_w.data_ptr() % 16 or pool.color.data_ptr() % 16:
+        raise ValueError("integrate: tsdf_w and color must be 16-byte "
+                         "aligned")
 
 
-def _launch(cfg, pool, vols, slots, slots_mask, rgb, depth_m, world_to_cam,
-            intr, frame) -> None:
-    """One launch of the kernel over n volumes of the stacked ``pool``:
-    ``vols`` (n,) int32 pool slots on the device, then per volume its
+def _launch_args(cfg, pool, vols, slots, slots_mask, rgb, depth_m,
+                 world_to_cam, intr, frame, frame_scalar: int = 0
+                 ) -> cuda_build.Launch:
+    """The kernel's C call over n volumes of the stacked ``pool``, ready to
+    run: ``vols`` (n,) int32 pool slots on the device, then per volume its
     visible list (n, V), view (n, H, W[, 3]), pose (n, 4, 4), intrinsics
-    (n, 4) and frame index (n,)."""
+    (n, 4) and frame index (n,) (None: every volume at ``frame_scalar``).
+    Tensors of the kernel's types pass as they are: no conversion
+    launches."""
     dev = pool.device
     _check_pool(cfg, pool)
-    n = vols.shape[0]
-    for name, t in (("vols", vols), ("slots", slots),
-                    ("slots_mask", slots_mask), ("rgb", rgb),
-                    ("depth_m", depth_m), ("world_to_cam", world_to_cam),
-                    ("intr4", intr), ("frame_idx", frame)):
+    n = slots.shape[0]
+    named = (("slots", slots), ("slots_mask", slots_mask), ("rgb", rgb),
+             ("depth_m", depth_m), ("world_to_cam", world_to_cam),
+             ("intr4", intr), ("vols", vols), ("frame_idx", frame))
+    for name, t in named:
+        if t is None:
+            continue
         if t.device != dev:
             raise ValueError(f"integrate: {name} on {t.device}, pool on {dev}")
         if t.shape[0] != n:
@@ -156,40 +165,64 @@ def _launch(cfg, pool, vols, slots, slots_mask, rgb, depth_m, world_to_cam,
     img_h, img_w = depth_m.shape[1:]
     if rgb.shape != (n, img_h, img_w, 3) or rgb.dtype != torch.uint8:
         raise ValueError(f"integrate: rgb must be uint8 {(n, img_h, img_w, 3)}")
-    if slots.dim() != 2 or slots_mask.shape != slots.shape:
-        raise ValueError("integrate: slots and slots_mask must be (n, V)")
+    if slots.dim() != 2 or slots_mask.shape != slots.shape \
+            or slots_mask.dtype not in (torch.bool, torch.uint8):
+        raise ValueError("integrate: slots and a bool slots_mask must be "
+                         "(n, V)")
     if world_to_cam.shape != (n, 4, 4) or intr.shape != (n, 4):
         raise ValueError("integrate: world_to_cam must be (n, 4, 4), intr4 "
                          "(n, 4)")
     slots_i = slots.to(torch.int32).contiguous()
-    mask_u8 = slots_mask.to(torch.uint8).contiguous()
-    vols_i = vols.to(torch.int32).contiguous()
+    mask_c = slots_mask.contiguous()  # bool is one byte 0/1, as uint8
     depth_f = depth_m.to(torch.float32).contiguous()
     rgb_c = rgb.contiguous()
     w2c = world_to_cam.to(torch.float32).contiguous()
     intr_c = intr.to(torch.float32).contiguous()
-    frame_i = frame.to(torch.int32).contiguous()
+    vols_i = vols.to(torch.int32).contiguous()
+    frame_i = None if frame is None else frame.to(torch.int32).contiguous()
     fn = cuda_build.function("integrate", "dynslam_integrate",
-                             "pppp i pi ppi ppppp ii fffffffff i p")
-    err = fn(
+                             "pppp i pi ppi ppppp i ii fffffffff i p")
+    args = (
         pool.tsdf_w.data_ptr(), pool.color.data_ptr(),
         pool.block_coords.data_ptr(), pool.last_seen.data_ptr(),
-        cfg.pool_capacity, vols_i.data_ptr(), n, slots_i.data_ptr(),
-        mask_u8.data_ptr(), slots_i.shape[1], depth_f.data_ptr(),
-        rgb_c.data_ptr(), w2c.data_ptr(), intr_c.data_ptr(),
-        frame_i.data_ptr(), img_h, img_w,
+        cfg.pool_capacity, vols_i.data_ptr(), n,
+        slots_i.data_ptr(), mask_c.data_ptr(), slots_i.shape[1],
+        depth_f.data_ptr(), rgb_c.data_ptr(), w2c.data_ptr(),
+        intr_c.data_ptr(), None if frame_i is None else frame_i.data_ptr(),
+        int(frame_scalar), img_h, img_w,
         cfg.voxel_size, cfg.mu, recip32(cfg.mu), cfg.mu * 0.25,
         recip32(1000.0), recip32(SDF_SCALE), cfg.max_weight, cfg.min_depth,
         cfg.max_depth, int(cfg.use_depth_weighting),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    cuda_build.check_launch(err, "integrate")
+    return cuda_build.Launch(fn, args, (slots_i, mask_c, depth_f, rgb_c, w2c,
+                                        intr_c, vols_i, frame_i))
+
+
+def _launch(*args, **kw) -> None:
+    """Build the C call with ``_launch_args`` and run it once."""
+    cuda_build.check_launch(_launch_args(*args, **kw)(), "integrate")
     integrate.launches += 1
 
 
 def _as_pool(state: TsdfState) -> TsdfState:
     """One map as a pool of one: views with a leading axis of 1."""
     return TsdfState(*(getattr(state, f.name)[None] for f in fields(state)))
+
+
+def single_view_args(cfg: TsdfConfig, state: TsdfState, slots, slots_mask,
+                     rgb, depth_m, world_to_cam, frame_idx, intr4=None):
+    """``integrate``'s arguments as ``_launch_args`` takes them: the map
+    as pool slot 0 (a cached device constant), a volume axis of 1, the
+    frame index as a scalar when it is an int."""
+    dev = state.device
+    scalar = not torch.is_tensor(frame_idx)
+    return ((cfg, _as_pool(state), constant((0,), torch.int32, dev),
+             slots[None], slots_mask[None],
+             rgb[None], depth_m[None], world_to_cam[None],
+             _intr4(cfg, intr4, dev)[None],
+             None if scalar else frame_tensor(frame_idx, (1,), dev)),
+            dict(frame_scalar=int(frame_idx) if scalar else 0))
 
 
 def integrate(
@@ -211,11 +244,9 @@ def integrate(
         return integrate_ref(cfg, state, slots, slots_mask, rgb, depth_m,
                              world_to_cam, frame_idx, intr4)
     if dev.type == "cuda":
-        _launch(cfg, _as_pool(state),
-                torch.zeros(1, dtype=torch.int32, device=dev), slots[None],
-                slots_mask[None], rgb[None], depth_m[None], world_to_cam[None],
-                _intr4(cfg, intr4, dev)[None],
-                frame_tensor(frame_idx, (1,), dev))
+        args, kw = single_view_args(cfg, state, slots, slots_mask, rgb,
+                                    depth_m, world_to_cam, frame_idx, intr4)
+        _launch(*args, **kw)
         return state
     raise ValueError(f"integrate: unsupported device {dev}")
 

@@ -1,14 +1,16 @@
-"""Full-frame TSDF raycast: the CUDA kernel ``csrc/raycast.cu`` and its
-plain PyTorch version ``raycast_ref``.
+"""Full-frame TSDF raycast: the CUDA kernels ``csrc/raycast.cu`` (a
+candidate pre-pass and the ray march) and their plain PyTorch versions
+``candidate_bits_ref`` and ``raycast_ref``.
 
 Replaces ``dynslam_tpu/ops/pallas_raycast.py::raycast_tiled``. The march
 rule is the Pallas kernel's, with the per-tile top-K candidate lists
-replaced by a per-slot candidate flag looked up through the dense local
-grid:
+replaced by a packed candidate bitmap over the dense local grid:
 
 - a block is a candidate when it is visible, holds a stored negative
   voxel (a zero crossing needs one) and lies in depth range
-  (``candidate_flags``); every other voxel reads sdf = +1;
+  (``candidate_flags``, per pool slot); ``candidate_bits_ref`` sets one
+  bit per local-grid cell that holds such a block, and every other voxel
+  reads sdf = +1;
 - rays (z-normalised, so t is z-depth) start at the first candidate block
   at or after t_min = 0.6 min_depth and stop at t_cap = 1.05 max_depth +
   2 dt, dt = 2.5 voxel;
@@ -22,13 +24,18 @@ grid:
 - colour and weight are read at the hit, falling back to the crossing
   sample and then to one dt in front of it.
 
+The bitmap also holds one bit per super-cell of SUPER^3 grid cells; the
+DDA crosses a super-cell with no candidate in one step that lands where
+the cell-by-cell walk would (same entry t, same max_dda count), and stops
+once a ray has left the window for good.
+
 ``raycast_ref`` computes exactly this rule, vectorised over pixels with
-a Python loop over steps, in the kernel's operation order; the kernel is
-compiled with ``-fmad=false`` so the two agree on the card up to the
+a Python loop over steps, in the kernel's operation order; the kernels
+are compiled with ``-fmad=false`` so the two agree on the card up to the
 division and floor rounding they share.
 
 Coverage is at least the tiled kernel's: no far block is dropped from a
-crowded tile. ``march_samples`` counts the samples each ray executed; the
+crowded tile. ``march_samples`` counts the samples the rays executed; the
 JAX kernel counts per-tile steps x 1024, so the two are not comparable.
 """
 
@@ -41,11 +48,16 @@ import torch
 from dynslam_tpu_torch.device import constant
 from dynslam_tpu_torch.ops import cuda_build
 from dynslam_tpu_torch.ops.tsdf import (
-    SDF_SCALE, WEIGHT_SCALE, TsdfConfig, TsdfState, unpack_rgb,
+    SDF_SCALE, WEIGHT_SCALE, TsdfConfig, TsdfState, grid_linear, unpack_rgb,
 )
-from dynslam_tpu_torch.utils.se3 import inverse
 
 _BIG = 1e9
+#: local-grid cells per super-cell edge of the DDA's coarse level
+SUPER = 4
+#: shared memory one CTA may opt in to on sm_90 (227 KB), less a reserve
+#: for the march kernel's own static shared memory
+SMEM_OPTIN_BYTES = 232448
+_SMEM_RESERVE = 1024
 
 
 class Raycast(NamedTuple):
@@ -89,12 +101,59 @@ def _march_constants(cfg: TsdfConfig) -> _March:
     )
 
 
+def _vec_words(n_bits: int) -> int:
+    """int32 words holding n_bits, padded to whole 16-byte vectors."""
+    return -(-n_bits // 128) * 4
+
+
+def fine_words(cfg: TsdfConfig) -> int:
+    """Words of the fine part of the bitmap: one bit per local-grid cell."""
+    return _vec_words(cfg.n_cells)
+
+
+def bitmap_words(cfg: TsdfConfig) -> int:
+    """int32 words of the candidate bitmap: the fine bits (``fine_words``),
+    then one bit per super-cell of the DDA's coarse level."""
+    cx, cy, cz = coarse_dims(cfg)
+    return fine_words(cfg) + _vec_words(cx * cy * cz)
+
+
+def coarse_dims(cfg: TsdfConfig):
+    """Super-cells of SUPER^3 local-grid cells covering the window."""
+    return tuple(-(-d // SUPER) for d in cfg.local_dims)
+
+
+def coarse_cells(cfg: TsdfConfig, cand: torch.Tensor) -> torch.Tensor:
+    """(cx, cy, cz) bool: super-cells holding a candidate cell."""
+    dims, cdims = cfg.local_dims, coarse_dims(cfg)
+    full = torch.zeros(*(c * SUPER for c in cdims), dtype=torch.bool,
+                       device=cand.device)
+    full[:dims[0], :dims[1], :dims[2]] = cand[:cfg.n_cells].view(dims)
+    return full.view(cdims[0], SUPER, cdims[1], SUPER, cdims[2], SUPER) \
+        .any(5).any(3).any(1)
+
+
+def _depth_range(cfg: TsdfConfig):
+    """A candidate block's corner depths must reach above the first and
+    below the second."""
+    return cfg.min_depth * 0.5, cfg.max_depth * 1.05 + cfg.mu
+
+
+def _z_row(c2w: torch.Tensor):
+    """Row 2 of the rigid inverse (R^T, -R^T t) of ``c2w``: the camera z
+    of a world point is p . r + t, in the pre-pass kernel's order."""
+    r = (c2w[0, 2], c2w[1, 2], c2w[2, 2])
+    t = -(c2w[0, 2] * c2w[0, 3] + c2w[1, 2] * c2w[1, 3]
+          + c2w[2, 2] * c2w[2, 3])
+    return r, t
+
+
 def candidate_flags(
     cfg: TsdfConfig,
     state: TsdfState,
     slots: torch.Tensor,  # (V,) visible pool slots
     slots_mask: torch.Tensor,  # (V,) bool
-    world_to_cam: torch.Tensor,  # (4, 4)
+    cam_to_world: torch.Tensor,  # (4, 4)
 ) -> torch.Tensor:
     """(P,) uint8: 1 for visible blocks that hold a stored negative voxel
     (a zero crossing needs one) and lie in depth range — the filter of
@@ -109,15 +168,64 @@ def candidate_flags(
     )
     pts = (state.block_coords[slots_c].to(torch.float32)[:, None, :]
            + corner[None]) * cfg.block_size  # (V, 8, 3)
-    R, t = world_to_cam[:3, :3], world_to_cam[:3, 3]
-    z = pts @ R[2] + t[2]
-    ok = slots_mask & has_neg & (z.amax(1) > cfg.min_depth * 0.5) \
-        & (z.amin(1) < cfg.max_depth * 1.05 + cfg.mu)
+    r, t = _z_row(cam_to_world)
+    z = pts[..., 0] * r[0] + pts[..., 1] * r[1] + pts[..., 2] * r[2] + t
+    z_lo, z_hi = _depth_range(cfg)
+    ok = slots_mask & has_neg & (z.amax(1) > z_lo) & (z.amin(1) < z_hi)
     flag = torch.zeros(P, dtype=torch.uint8, device=state.device)
     # masked-out entries rewrite the scratch row P-1, which stays 0
     flag[torch.where(ok, slots_c, P - 1)] = ok.to(torch.uint8)
     flag[-1:].zero_()
     return flag
+
+
+def pack_bits(cells: torch.Tensor, n_words: int) -> torch.Tensor:
+    """(n_cells,) bool -> (n_words,) int32, cell c at bit c % 32 of word
+    c // 32."""
+    flat = torch.zeros(n_words * 32, dtype=torch.int64, device=cells.device)
+    flat[:cells.numel()] = cells.to(torch.int64)
+    weights = torch.arange(32, device=cells.device)
+    words = (flat.view(n_words, 32) << weights).sum(1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def unpack_bits(bits: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """(n_words,) int32 -> (n_cells,) bool; the inverse of ``pack_bits``."""
+    shifts = torch.arange(32, device=bits.device)
+    return (((bits.to(torch.int64)[:, None] >> shifts) & 1) > 0) \
+        .reshape(-1)[:n_cells]
+
+
+def candidate_bits_ref(
+    cfg: TsdfConfig,
+    state: TsdfState,
+    grid: torch.Tensor,  # (n_cells,) int32 local index grid
+    origin: torch.Tensor,  # (3,) int32
+    slots: torch.Tensor,  # (V,) visible pool slots
+    slots_mask: torch.Tensor,  # (V,) bool
+    cam_to_world: torch.Tensor,  # (4, 4)
+) -> torch.Tensor:
+    """The pre-pass kernel's rule in plain PyTorch: (``bitmap_words``,)
+    int32, the bit of a local-grid cell set where the cell holds a slot
+    that ``candidate_flags`` flags (the visible block's own cell, where
+    ``grid`` holds it)."""
+    P = cfg.pool_capacity
+    flag = candidate_flags(cfg, state, slots, slots_mask, cam_to_world)
+    slots_c = torch.clamp(slots.to(torch.int64), 0, P - 1)
+    lin, in_win = grid_linear(
+        cfg, state.block_coords[slots_c] - origin.to(torch.int32)[None, :])
+    lin = torch.where(in_win, lin, 0).to(torch.int64)
+    ok = slots_mask & (flag[slots_c] > 0) & in_win & (grid[lin] == slots_c)
+    cells = torch.zeros(cfg.n_cells + 1, dtype=torch.bool,
+                        device=state.device)
+    # entries that are not ok write the dump cell n_cells
+    cells.index_fill_(0, torch.where(ok, lin, cfg.n_cells), True)
+    cand = cells[:cfg.n_cells]
+    return torch.cat([
+        pack_bits(cand, fine_words(cfg)),
+        pack_bits(coarse_cells(cfg, cand).reshape(-1),
+                  bitmap_words(cfg) - fine_words(cfg))])
 
 
 def _ray_dirs(c2w: torch.Tensor, intr: torch.Tensor, h: int, w: int):
@@ -135,14 +243,18 @@ def _ray_dirs(c2w: torch.Tensor, intr: torch.Tensor, h: int, w: int):
 class _Scene:
     """Flat views of the map for the vectorised march of ``raycast_ref``:
     each method mirrors the device function of the same name in
-    ``csrc/raycast.cu``."""
+    ``csrc/raycast.cu``. ``cand`` (n_cells,) bool is the unpacked
+    candidate bitmap and ``coarse`` (``coarse_dims``) bool its
+    super-cells."""
 
-    def __init__(self, cfg, state, grid, origin, flag, c2w, intr, m: _March):
+    def __init__(self, cfg, state, grid, origin, cand, coarse, c2w, intr,
+                 m: _March):
         self.cfg, self.m = cfg, m
         self.tsdf = state.tsdf_w.reshape(-1)
         self.color = state.color.reshape(-1)
         self.grid = grid
-        self.flag = flag.to(torch.bool)
+        self.cand = cand
+        self.coarse = coarse
         self.origin = origin.to(torch.int32)
         h, w = cfg.height, cfg.width
         self.o = [c2w[k, 3].expand(h * w) for k in range(3)]
@@ -156,15 +268,15 @@ class _Scene:
                 .to(torch.int32) for k in range(3)]
 
     def cand_slot(self, c):
-        """Candidate slot of block cells c = (cx, cy, cz), or -1."""
+        """Candidate slot of block cells c = (cx, cy, cz), or -1: a bit
+        test, then the grid only for a candidate cell."""
         dx, dy, dz = self.cfg.local_dims
         lx, ly, lz = (c[k] - self.origin[k] for k in range(3))
         inw = (lx >= 0) & (lx < dx) & (ly >= 0) & (ly < dy) \
             & (lz >= 0) & (lz < dz)
         lin = torch.where(inw, (lx * dy + ly) * dz + lz, 0).to(torch.int64)
-        slot = torch.where(inw, self.grid[lin], -1)
-        ok = (slot >= 0) & self.flag[torch.clamp(slot, min=0).to(torch.int64)]
-        return torch.where(ok, slot, -1)
+        ok = inw & self.cand[lin]
+        return torch.where(ok, self.grid[lin], -1)
 
     def cand_voxel(self, o, d, t):
         """Flat pool index of the voxel at t in a candidate block, or -1."""
@@ -197,43 +309,100 @@ class _Scene:
 
     def _exits(self, c, o, step, inv):
         """Per axis, the t at which the ray leaves cell c."""
-        return [
-            torch.where(
-                step[k] != 0,
-                ((c[k] + (step[k] > 0).to(torch.int32)).to(torch.float32)
-                 * self.m.block - o[k]) * inv[k],
-                float("inf"),
-            )
-            for k in range(3)
-        ]
+        return [self._exit_at(k, c[k], o, step, inv) for k in range(3)]
+
+    def leaving(self, c, step):
+        """Outside the window on an axis and not moving back into it: a
+        line that has left the (convex) window never re-enters it, so the
+        walk can find no candidate any more."""
+        out = torch.zeros_like(c[0], dtype=torch.bool)
+        for k, n in enumerate(self.cfg.local_dims):
+            lk = c[k] - self.origin[k]
+            out |= ((lk < 0) & (step[k] <= 0)) | ((lk >= n) & (step[k] >= 0))
+        return out
+
+    def _exit_at(self, k, c, o, step, inv):
+        """The t at which the ray leaves cell index c along axis k."""
+        return torch.where(
+            step[k] != 0,
+            ((c + (step[k] > 0).to(torch.int32)).to(torch.float32)
+             * self.m.block - o[k]) * inv[k],
+            float("inf"))
+
+    def _skip(self, c, o, step, inv):
+        """The fine walk's run through the empty super-cell holding cell c
+        (in the window), done at once: (steps along each axis, t of the
+        step that leaves the super-cell). The walk merges the three axes'
+        exit sequences, each non-decreasing, in (t, axis) order, so the
+        step that leaves is the least (t, axis) of the three boundary
+        exits, and along each other axis the walk steps exactly over the
+        prefix of exits that come before it in that order."""
+        dims = self.cfg.local_dims
+        last, bound = [], []
+        for k in range(3):
+            lk = c[k] - self.origin[k]
+            lo = torch.div(lk, SUPER, rounding_mode="floor") * SUPER
+            b = torch.where(step[k] > 0,
+                            torch.clamp(lo + SUPER - 1, max=dims[k] - 1), lo)
+            last.append(b)
+            bound.append(self._exit_at(k, b + self.origin[k], o, step, inv))
+        a0 = (bound[0] <= bound[1]) & (bound[0] <= bound[2])
+        a1 = ~a0 & (bound[1] <= bound[2])
+        axis = torch.where(a0, 0, torch.where(a1, 1, 2))
+        t_x = torch.where(a0, bound[0], torch.where(a1, bound[1], bound[2]))
+        n = []
+        for k in range(3):
+            limit = (last[k] - (c[k] - self.origin[k])).abs()
+            cnt = torch.zeros_like(limit)
+            alive = torch.ones_like(limit, dtype=torch.bool)
+            for i in range(SUPER):
+                v = self._exit_at(k, c[k] + i * step[k], o, step, inv)
+                alive &= (i < limit) & ((v < t_x) | ((v == t_x) & (k < axis)))
+                cnt += alive.to(cnt.dtype)
+            n.append(torch.where(axis == k, limit + 1, cnt))
+        return n, t_x
 
     def next_entry(self, o, d, t_a):
         """Entry t of the first candidate block after the cell holding
         t_a, or _BIG: a DDA over grid cells, at most max_dda cells, that
-        gives up past t_cap."""
+        gives up past t_cap, or once the ray has left the window for good
+        (where the full walk would find nothing either). In a super-cell
+        with no candidate the walk's run to its exit is taken in one go
+        (``_skip``); its cells count toward max_dda."""
         m = self.m
+        dims = self.cfg.local_dims
         c = [a >> 3 for a in self.voxel_at(o, d, t_a)]
         step, inv = self._steps(d)
         out = torch.full_like(t_a, _BIG)
+        it = torch.zeros_like(c[0])
         live = torch.arange(t_a.shape[0], device=t_a.device)
-        for _ in range(m.max_dda):
-            if live.numel() == 0:
-                break
+        while live.numel():
+            loc = [c[k] - self.origin[k] for k in range(3)]
+            inw = (loc[0] >= 0) & (loc[0] < dims[0]) & (loc[1] >= 0) \
+                & (loc[1] < dims[1]) & (loc[2] >= 0) & (loc[2] < dims[2])
+            sup = [torch.div(torch.clamp(loc[k], 0, dims[k] - 1), SUPER,
+                             rounding_mode="floor") for k in range(3)]
+            empty = inw & ~self.coarse[sup[0], sup[1], sup[2]]
+            # one fine step
             tb = self._exits(c, o, step, inv)
             a0 = (tb[0] <= tb[1]) & (tb[0] <= tb[2])
             a1 = ~a0 & (tb[1] <= tb[2])
-            a2 = ~a0 & ~a1
             t_e = torch.where(a0, tb[0], torch.where(a1, tb[1], tb[2]))
-            c = [c[0] + torch.where(a0, step[0], 0),
-                 c[1] + torch.where(a1, step[1], 0),
-                 c[2] + torch.where(a2, step[2], 0)]
-            past = ~(t_e <= m.t_cap)
-            found = ~past & (self.cand_slot(c) >= 0)
+            n = [a0.to(c[0].dtype), a1.to(c[0].dtype),
+                 (~a0 & ~a1).to(c[0].dtype)]
+            if empty.any():
+                n_s, t_s = self._skip(c, o, step, inv)
+                n = [torch.where(empty, n_s[k], n[k]) for k in range(3)]
+                t_e = torch.where(empty, t_s, t_e)
+            it = it + n[0] + n[1] + n[2]
+            c = [c[k] + n[k] * step[k] for k in range(3)]
+            stop = ~(t_e <= m.t_cap) | (it > m.max_dda)
+            found = ~stop & (self.cand_slot(c) >= 0)
             out[live[found]] = t_e[found]
-            keep = ~(past | found)
+            keep = ~(stop | found | self.leaving(c, step)) & (it < m.max_dda)
             live = live[keep]
-            c, o, d, step, inv = ([a[keep] for a in x]
-                                  for x in (c, o, d, step, inv))
+            c, o, d, step, inv, it = ([a[keep] for a in x] if isinstance(
+                x, list) else x[keep] for x in (c, o, d, step, inv, it))
         return out
 
     def sample_cw(self, o, d, t):
@@ -246,32 +415,13 @@ class _Scene:
         return wb, col, ok
 
 
-def _assemble(depth, color_bits, weight, samples, c2w, intr) -> Raycast:
-    h, w = depth.shape
-    hit = depth > 0.0
-    d = _ray_dirs(c2w, intr, h, w)
-    points = torch.stack([c2w[k, 3] + d[k] * depth for k in range(3)], -1)
-    color = torch.where(hit[..., None], unpack_rgb(color_bits), 0)
-    return Raycast(depth=depth, points=points, color=color.to(torch.uint8),
-                   weight=weight, hit=hit,
-                   march_samples=samples.sum(dtype=torch.int64))
-
-
-def raycast_ref(
-    cfg: TsdfConfig,
-    state: TsdfState,
-    grid: torch.Tensor,  # (n_cells,) int32 local index grid
-    origin: torch.Tensor,  # (3,) int32
-    flag: torch.Tensor,  # (P,) uint8 from candidate_flags
-    cam_to_world: torch.Tensor,  # (4, 4) f32
-    intrinsics: torch.Tensor,  # (4,) f32 fx, fy, cx, cy
-) -> Raycast:
-    """The kernel's rule in plain PyTorch, vectorised over pixels."""
-    m = _march_constants(cfg)
+def _march_ref(cfg: TsdfConfig, sc: _Scene, c2w: torch.Tensor,
+               intr: torch.Tensor) -> Raycast:
+    """The march of ``raycast_ref`` over the scene ``sc``."""
+    m = sc.m
     h, w = cfg.height, cfg.width
-    sc = _Scene(cfg, state, grid, origin, flag, cam_to_world, intrinsics, m)
     n = h * w
-    dev = state.device
+    dev = c2w.device
     all_idx = torch.arange(n, device=dev)
     o, d = sc.rays(all_idx)
     t_min = torch.full((n,), m.t_min, dtype=torch.float32, device=dev)
@@ -330,61 +480,177 @@ def raycast_ref(
     col = torch.where(ok_hit, col, torch.where(ok_fb, col1, col2))
 
     depth = torch.where(found, bh, 0.0).reshape(h, w)
-    color_bits = torch.where(found, col, 0).reshape(h, w)
     weight = torch.where(found, wb.to(torch.float32) * (1.0 / WEIGHT_SCALE),
                          0.0).reshape(h, w)
-    return _assemble(depth, color_bits, weight, ns.reshape(h, w),
-                     cam_to_world, intrinsics)
+    hit = depth > 0.0
+    dirs = _ray_dirs(c2w, intr, h, w)
+    points = torch.stack([c2w[k, 3] + dirs[k] * depth for k in range(3)], -1)
+    color = torch.where(hit[..., None], unpack_rgb(col.reshape(h, w)), 0)
+    return Raycast(depth=depth, points=points, color=color.to(torch.uint8),
+                   weight=weight, hit=hit,
+                   march_samples=ns.sum(dtype=torch.int64))
 
 
-def _raycast_cuda(cfg, state, grid, origin, flag, cam_to_world,
-                  intrinsics) -> Raycast:
+def raycast_ref(
+    cfg: TsdfConfig,
+    state: TsdfState,
+    grid: torch.Tensor,  # (n_cells,) int32 local index grid
+    origin: torch.Tensor,  # (3,) int32
+    bits: torch.Tensor,  # (bitmap_words,) int32 from candidate_bits_ref
+    cam_to_world: torch.Tensor,  # (4, 4) f32
+    intrinsics: torch.Tensor,  # (4,) f32 fx, fy, cx, cy
+) -> Raycast:
+    """The march kernel's rule in plain PyTorch, vectorised over pixels."""
+    cdims = coarse_dims(cfg)
+    coarse = unpack_bits(bits[fine_words(cfg):],
+                         cdims[0] * cdims[1] * cdims[2]).view(cdims)
+    sc = _Scene(cfg, state, grid, origin, unpack_bits(bits, cfg.n_cells),
+                coarse, cam_to_world, intrinsics, _march_constants(cfg))
+    return _march_ref(cfg, sc, cam_to_world, intrinsics)
+
+
+def _check_inputs(cfg: TsdfConfig, state: TsdfState, **tensors) -> None:
     dev = state.device
-    for name, t in (("grid", grid), ("origin", origin), ("flag", flag),
-                    ("cam_to_world", cam_to_world),
-                    ("intrinsics", intrinsics)):
+    for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"raycast: {name} on {t.device}, pool on {dev}")
-    dx, dy, dz = cfg.local_dims
-    if grid.shape != (dx * dy * dz,) or grid.dtype != torch.int32:
+    if "grid" in tensors and (tensors["grid"].shape != (cfg.n_cells,)
+                              or tensors["grid"].dtype != torch.int32):
         raise ValueError("raycast: grid must be int32 (n_cells,)")
-    if flag.shape != (cfg.pool_capacity,) or flag.dtype != torch.uint8:
-        raise ValueError("raycast: flag must be uint8 (P,)")
     for name in ("tsdf_w", "color"):
         t = getattr(state, name)
         if t.shape != (cfg.pool_capacity, 512) or t.dtype != torch.int32 \
-                or not t.is_contiguous():
+                or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"raycast: {name} must be contiguous int32 "
-                             f"(P, 512)")
-    if cam_to_world.shape != (4, 4) or intrinsics.shape != (4,) \
-            or origin.shape != (3,):
-        raise ValueError("raycast: cam_to_world must be (4, 4), intrinsics "
-                         "(4,), origin (3,)")
+                             f"(P, 512), 16-byte aligned")
+    if tensors["cam_to_world"].shape != (4, 4) \
+            or tensors["origin"].shape != (3,):
+        raise ValueError("raycast: cam_to_world must be (4, 4), origin (3,)")
+
+
+def _candidates_launch(cfg, state, grid, origin, slots, slots_mask,
+                       cam_to_world, bits) -> cuda_build.Launch:
+    """The pre-pass's C call with its arguments, ready to run."""
+    _check_inputs(cfg, state, grid=grid, origin=origin, slots=slots,
+                  slots_mask=slots_mask, cam_to_world=cam_to_world)
+    if slots.dim() != 1 or slots_mask.shape != slots.shape \
+            or slots_mask.dtype not in (torch.bool, torch.uint8):
+        raise ValueError("raycast: slots (V,) with a bool mask (V,)")
+    sl = slots.to(torch.int32).contiguous()
+    mk = slots_mask.contiguous()
+    c2w = cam_to_world.to(torch.float32).contiguous()
+    org = origin.to(torch.int32).contiguous()
+    grid_c = grid.contiguous()
+    coords = state.block_coords.contiguous()
+    dx, dy, dz = cfg.local_dims
+    z_lo, z_hi = _depth_range(cfg)
+    fn = cuda_build.function("raycast", "dynslam_candidates",
+                             "ppppp i pp iii fff pii p")
+    args = (state.tsdf_w.data_ptr(), coords.data_ptr(), grid_c.data_ptr(),
+            sl.data_ptr(), mk.data_ptr(), sl.shape[0], c2w.data_ptr(),
+            org.data_ptr(), dx, dy, dz, cfg.block_size, z_lo, z_hi,
+            bits.data_ptr(), bits.shape[0], fine_words(cfg),
+            torch.cuda.current_stream(state.device).cuda_stream)
+    return cuda_build.Launch(fn, args, (sl, mk, c2w, org, grid_c, coords,
+                                        bits))
+
+
+def candidate_bits(
+    cfg: TsdfConfig,
+    state: TsdfState,
+    grid: torch.Tensor,
+    origin: torch.Tensor,
+    slots: torch.Tensor,
+    slots_mask: torch.Tensor,
+    cam_to_world: torch.Tensor,
+) -> torch.Tensor:
+    """The candidate bitmap of the local window. CPU pool:
+    ``candidate_bits_ref``; CUDA pool: the pre-pass kernel
+    (``candidate_bits.launches`` counts its launches)."""
+    dev = state.device
+    if dev.type == "cpu":
+        return candidate_bits_ref(cfg, state, grid, origin, slots,
+                                  slots_mask, cam_to_world)
+    if dev.type != "cuda":
+        raise ValueError(f"raycast: unsupported device {dev}")
+    bits = torch.empty(bitmap_words(cfg), dtype=torch.int32, device=dev)
+    launch = _candidates_launch(cfg, state, grid, origin, slots, slots_mask,
+                                cam_to_world, bits)
+    cuda_build.check_launch(launch(), "raycast candidates")
+    candidate_bits.launches += 1
+    return bits
+
+
+def check_window(cfg: TsdfConfig) -> None:
+    """Raise ValueError when the window's bitmap does not fit in one CTA's
+    shared memory (227 KB on sm_90); every window of the repo fits."""
+    need = bitmap_words(cfg) * 4 + _SMEM_RESERVE
+    if need > SMEM_OPTIN_BYTES:
+        raise ValueError(
+            f"raycast: the candidate bitmap of the {cfg.local_dims} window "
+            f"needs {bitmap_words(cfg) * 4} bytes of shared memory; a CTA "
+            f"holds at most {SMEM_OPTIN_BYTES - _SMEM_RESERVE}")
+
+
+def _march_launch(cfg, state, grid, origin, bits, cam_to_world, intrinsics,
+                  out: Raycast, header: torch.Tensor) -> cuda_build.Launch:
+    """The march's C call with its arguments, writing into ``out`` and the
+    (2,) int64 ``header`` (samples total, tile counter)."""
+    _check_inputs(cfg, state, grid=grid, origin=origin, bits=bits,
+                  cam_to_world=cam_to_world, intrinsics=intrinsics)
+    if bits.shape != (bitmap_words(cfg),) or bits.dtype != torch.int32 \
+            or not bits.is_contiguous():
+        raise ValueError(f"raycast: bits must be int32 "
+                         f"({bitmap_words(cfg)},)")
+    if intrinsics.shape != (4,):
+        raise ValueError("raycast: intrinsics must be (4,)")
     m = _march_constants(cfg)
-    h, w = cfg.height, cfg.width
+    dx, dy, dz = cfg.local_dims
     c2w = cam_to_world.to(torch.float32).contiguous()
     intr = intrinsics.to(torch.float32).contiguous()
     org = origin.to(torch.int32).contiguous()
     grid_c = grid.contiguous()
-    depth = torch.empty(h, w, dtype=torch.float32, device=dev)
-    color_bits = torch.empty(h, w, dtype=torch.int32, device=dev)
-    weight = torch.empty(h, w, dtype=torch.float32, device=dev)
-    samples = torch.empty(h, w, dtype=torch.int32, device=dev)
-    fn = cuda_build.function("raycast", "dynslam_raycast",
-                             "ppppppp iiiiiii ffffffffffffff pppp p")
-    err = fn(
+    fn = cuda_build.function("raycast", "dynslam_march",
+                             "ppppii ppp iiiiiii ffffffffffffff pppppp p")
+    args = (
         state.tsdf_w.data_ptr(), state.color.data_ptr(), grid_c.data_ptr(),
-        flag.data_ptr(), c2w.data_ptr(), intr.data_ptr(), org.data_ptr(),
-        dx, dy, dz, h, w, m.n_steps, m.max_dda,
-        m.inv_voxel, m.block, 1.0 / SDF_SCALE, m.dt, 1.5 * m.dt,
-        0.25 * m.dt, 0.5 * m.dt, cfg.mu, 0.9 * cfg.mu,
-        2.5 * cfg.voxel_size, m.t_min, m.t_max, m.t_cap, m.t_cap - 1e-3,
-        depth.data_ptr(), color_bits.data_ptr(), weight.data_ptr(),
-        samples.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        bits.data_ptr(), bits.shape[0] // 4, fine_words(cfg), c2w.data_ptr(),
+        intr.data_ptr(),
+        org.data_ptr(), dx, dy, dz, cfg.height, cfg.width, m.n_steps,
+        m.max_dda, m.inv_voxel, m.block, 1.0 / SDF_SCALE, m.dt, 1.5 * m.dt,
+        0.25 * m.dt, 0.5 * m.dt, cfg.mu, 0.9 * cfg.mu, 2.5 * cfg.voxel_size,
+        m.t_min, m.t_max, m.t_cap, m.t_cap - 1e-3,
+        out.depth.data_ptr(), out.points.data_ptr(), out.color.data_ptr(),
+        out.weight.data_ptr(), out.hit.data_ptr(), header.data_ptr(),
+        torch.cuda.current_stream(state.device).cuda_stream,
     )
-    cuda_build.check_launch(err, "raycast")
+    return cuda_build.Launch(fn, args, (c2w, intr, org, grid_c, bits, out,
+                                        header))
+
+
+def empty_raycast(cfg: TsdfConfig, device) -> tuple:
+    """Outputs for the march kernel to fill: (Raycast, (2,) int64 header
+    whose element 0 is ``march_samples``)."""
+    h, w = cfg.height, cfg.width
+    header = torch.empty(2, dtype=torch.int64, device=device)
+    out = Raycast(
+        depth=torch.empty(h, w, dtype=torch.float32, device=device),
+        points=torch.empty(h, w, 3, dtype=torch.float32, device=device),
+        color=torch.empty(h, w, 3, dtype=torch.uint8, device=device),
+        weight=torch.empty(h, w, dtype=torch.float32, device=device),
+        hit=torch.empty(h, w, dtype=torch.bool, device=device),
+        march_samples=header[0])
+    return out, header
+
+
+def _march_cuda(cfg, state, grid, origin, bits, cam_to_world,
+                intrinsics) -> Raycast:
+    out, header = empty_raycast(cfg, state.device)
+    launch = _march_launch(cfg, state, grid, origin, bits, cam_to_world,
+                           intrinsics, out, header)
+    cuda_build.check_launch(launch(), "raycast")
     raycast.launches += 1
-    return _assemble(depth, color_bits, weight, samples, c2w, intr)
+    return out
 
 
 def raycast(
@@ -398,21 +664,25 @@ def raycast(
     intrinsics: Optional[torch.Tensor] = None,
 ) -> Raycast:
     """Render the map from ``cam_to_world`` at the configured frame size.
-    CPU pool: ``raycast_ref``; CUDA pool: the kernel
-    (``raycast.launches`` counts its launches)."""
+    CPU pool: ``candidate_bits_ref`` and ``raycast_ref``; CUDA pool: the
+    pre-pass and the march kernel (``candidate_bits.launches`` and
+    ``raycast.launches`` count their launches)."""
+    dev = state.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"raycast: unsupported device {dev}")
     if intrinsics is None:
         intrinsics = constant((cfg.fx, cfg.fy, cfg.cx, cfg.cy),
-                              torch.float32, state.device)
-    flag = candidate_flags(cfg, state, slots, slots_mask,
-                           inverse(cam_to_world))
-    dev = state.device
-    if dev.type == "cpu":
-        return raycast_ref(cfg, state, grid, origin, flag, cam_to_world,
-                           intrinsics)
+                              torch.float32, dev)
     if dev.type == "cuda":
-        return _raycast_cuda(cfg, state, grid, origin, flag, cam_to_world,
-                             intrinsics)
-    raise ValueError(f"raycast: unsupported device {dev}")
+        check_window(cfg)
+    bits = candidate_bits(cfg, state, grid, origin, slots, slots_mask,
+                          cam_to_world)
+    if dev.type == "cpu":
+        return raycast_ref(cfg, state, grid, origin, bits, cam_to_world,
+                           intrinsics)
+    return _march_cuda(cfg, state, grid, origin, bits, cam_to_world,
+                       intrinsics)
 
 
+candidate_bits.launches = 0
 raycast.launches = 0
