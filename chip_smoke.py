@@ -56,7 +56,31 @@ and never prints its last line):
    |depth - ground truth| on that car's pixels beside that of the frame's
    own stereo depth.
 
-Phases 3, 4, 7 and 9 also print each kernel's times: the bare kernel
+10. the static slice with evaluation on: phase 5 again (bench.py's static
+    configuration) with ``FusedEvaluation`` attached and every frame
+    submitted as ``main.run_fused`` does, against LIDAR ground truth
+    sampled from the rendered depth (every 2nd pixel, at most 120k points
+    a scan, written with ``calib.txt`` under ``dynslam_tpu_torch/_build/``).
+    Checks the CSV files under ``base_csv_name``'s names, unified rows for
+    frames 1-7 in order, non-zero memory rows, the fused render's correct
+    share at the KITTI rule >= 0.9 from frame 2, and that the frame
+    thread's host syncs equal phase 5's; prints the frame rate beside phase
+    5's, the worker's time a job, one job's launches and the eval's device
+    time;
+11. the dynamic slice with evaluation on: phase 8 again (dispatch lag 2,
+    no profile) with ``FusedEvaluation`` attached, then ``finalize`` and
+    ``close``. Checks a dynamic bucket with fused hits, the tracker rows
+    (a reconstructed track, no dropped detection), at least one
+    crop-viewport render, the launch counts, and that the frame thread's
+    host syncs equal phase 8's; prints the frame rate beside phase 8's and
+    the crop and full-frame object renders a frame;
+12. K2 in the crop viewport: the pre-pass and the march on the inputs of
+    the largest object volume's last crop render of phase 11 (principal
+    point shifted by the crop origin) against ``candidate_bits_ref`` and
+    ``raycast_ref``, also in a viewport 3 rows and 5 columns smaller (8x4
+    tiles cut at its edges), with the times of phases 4 and 9.
+
+Phases 3, 4, 7, 9 and 12 also print each kernel's times: the bare kernel
 (its prepared C call alone, no Python conversion between launches), warm
 (50 back-to-back launches between two CUDA events) and cold (the L2
 flushed by a 128 MB write before each launch, an event pair around each);
@@ -765,44 +789,66 @@ def check_raycast(cfg, scene, flush, parent=None, kernel_reps: int = 20,
 
 
 def count_syncs(fn):
-    """Run ``fn`` with CUDA sync-debug warnings on; returns the Counter
-    of the synchronising call sites (file:line and source)."""
+    """Run ``fn`` with CUDA sync-debug warnings on; returns the Counters
+    of the synchronising call sites (file:line and source) of the calling
+    (frame) thread and of every other thread (the evaluation's worker).
+    Sync-debug mode is process-wide, so each warning is filed by the
+    thread that raised it."""
+    import threading
+
     import torch
 
-    with warnings.catch_warnings(record=True) as caught:
+    caught = []
+    frame_thread = threading.get_ident()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        caught.append((threading.get_ident() == frame_thread, message,
+                       filename, lineno))
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    sites = Counter()
-    for w in caught:
-        line = linecache.getline(w.filename, w.lineno).strip()
+    own, other = Counter(), Counter()
+    for on_frame_thread, message, filename, lineno in caught:
+        line = linecache.getline(filename, lineno).strip()
         # switching the mode back is reported too: not the frame's
-        if "synchroniz" in str(w.message) \
+        if "synchroniz" in str(message) \
                 and "set_sync_debug_mode" not in line:
-            path = Path(w.filename)
+            path = Path(filename)
             try:
                 path = path.resolve().relative_to(ROOT)
             except ValueError:
                 pass
-            sites[f"{path}:{w.lineno} `{line}`"] += 1
-    return sites
+            (own if on_frame_thread else other)[
+                f"{path}:{lineno} `{line}`"] += 1
+    return own, other
 
 
-def run_slice(config, frames, device, census_frame=CENSUS_FRAME) -> dict:
-    """Drive ``build_fused_static`` over the frames; the kernels' launch
-    counts are set to 0 just before and read just after."""
+def run_slice(config, frames, device, census_frame=CENSUS_FRAME,
+              eval_root: Optional[Path] = None, tag: str = "slice") -> dict:
+    """Drive ``build_fused_static`` over the frames, with a
+    ``FusedEvaluation`` of ``eval_root`` attached and every frame
+    submitted as ``main.run_fused`` does when it is given; the kernels'
+    launch counts are set to 0 just before and read just after."""
     import numpy as np
     import torch
 
     from dynslam_tpu_torch.ops import integrate as K1
     from dynslam_tpu_torch.ops import raycast as K2
-    from dynslam_tpu_torch.pipeline.builder import build_fused_static
+    from dynslam_tpu_torch.pipeline.builder import (
+        attach_evaluation, build_fused_static,
+    )
 
     pipe = build_fused_static(config, config.calibration, device=device,
                               seed=SEED)
+    if eval_root is not None:
+        attach_evaluation(pipe, config, str(eval_root),
+                          csv_out_dir=str(eval_root / "csv"))
     n = frames["left"].shape[0]
     lgs = [torch.tensor(x, dtype=torch.float32, device=device)
            for x in frames["left"]]
@@ -815,23 +861,29 @@ def run_slice(config, frames, device, census_frame=CENSUS_FRAME) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
+    def step(i):
+        pipe.process_frame(lgs[i], rgs[i], rgbs[i])
+        o = pipe.last_outputs
+        if pipe.evaluation is not None and o is not None:
+            pipe.evaluation.submit(i, o.raycast.depth, o.depth_m, None,
+                                   o.used_blocks, o.decayed_blocks)
+
     K1.integrate.launches = 0
     K2.candidate_bits.launches = 0
     K2.raycast.launches = 0
-    recs, census = [], Counter()
+    recs, census, worker = [], Counter(), Counter()
     for i in range(n):
         t0 = time.perf_counter()
         if i == census_frame and device.type == "cuda":
-            census = count_syncs(
-                lambda: pipe.process_frame(lgs[i], rgs[i], rgbs[i]))
+            census, worker = count_syncs(lambda: step(i))
         else:
-            pipe.process_frame(lgs[i], rgs[i], rgbs[i])
+            step(i)
         if device.type == "cuda":
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         o = pipe.last_outputs
         if i == 0:
-            say("slice", f"frame 0: bootstrap {dt * 1e3:.1f} ms")
+            say(tag, f"frame 0: bootstrap {dt * 1e3:.1f} ms")
             continue
         c2w = np.linalg.inv(pipe.get_pose().astype(np.float64))
         err = float(np.linalg.norm(c2w[:3, 3] - poses_gt[i][:3, 3]))
@@ -845,7 +897,7 @@ def run_slice(config, frames, device, census_frame=CENSUS_FRAME) -> dict:
                                  and torch.isfinite(o.pose_w2c).all()),
         )
         recs.append(rec)
-        say("slice", f"frame {i}: {rec['ms']:.1f} ms, vo {rec['vo']} "
+        say(tag, f"frame {i}: {rec['ms']:.1f} ms, vo {rec['vo']} "
                      f"({rec['inliers']} inliers), new {rec['new']}, used "
                      f"{rec['used']}, freed {rec['freed']}, decay "
                      f"{rec['decay']}, hit {rec['hit']:.3f}, pose err "
@@ -853,7 +905,10 @@ def run_slice(config, frames, device, census_frame=CENSUS_FRAME) -> dict:
     launches = dict(integrate=K1.integrate.launches,
                     candidates=K2.candidate_bits.launches,
                     raycast=K2.raycast.launches)
+    if pipe.evaluation is not None:
+        pipe.evaluation.close()
     return dict(pipe=pipe, recs=recs, launches=launches, census=census,
+                worker_census=worker,
                 peak_gb=(torch.cuda.max_memory_allocated() / 1e9
                          if device.type == "cuda" else 0.0),
                 frames=(lgs, rgs, rgbs))
@@ -897,7 +952,7 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-STAGE_PREFIXES = ("fused_step.", "fused_dyn.")
+STAGE_PREFIXES = ("fused_step.", "fused_dyn.", "fused_eval.")
 
 
 def summarize_trace(events, n: int) -> dict:
@@ -1008,20 +1063,46 @@ class FusionRecorder:
         return self.fn(cfg, pool, vols, *args)
 
 
-def run_dynamic(config, frames, device, out_dir: Path) -> dict:
+class CropRecorder:
+    """Wraps a pipeline's ``render_instance_crop``: passes every call on
+    (the launches count as the main path's) and keeps, per pooled slot,
+    the viewport of its latest crop-viewport render (pose and crop
+    origin), for phase 12."""
+
+    def __init__(self, pipe):
+        self.fn, self.last = pipe.render_instance_crop, {}
+        pipe.render_instance_crop = self
+
+    def __call__(self, slot, cam_to_world, u0, v0):
+        self.last[slot] = dict(c2w=cam_to_world, u0=u0, v0=v0)
+        return self.fn(slot, cam_to_world, u0, v0)
+
+
+def run_dynamic(config, frames, device, out_dir: Path,
+                eval_root: Optional[Path] = None,
+                census_frames=(DYN_CENSUS_FRAME,), profile: bool = True,
+                tag: str = "dyn") -> dict:
     """Drive ``build_fused_dynamic`` over the frames (the last ones under
-    torch.profiler), then ``finalize``; the kernels' launch counts are set
-    to 0 just before and read just after."""
+    torch.profiler unless ``profile`` is False), then ``finalize``, with a
+    ``FusedEvaluation`` of ``eval_root`` attached when it is given; the
+    kernels' launch counts are set to 0 just before and read just
+    after."""
     import numpy as np
     import torch
 
     from dynslam_tpu_torch.ops import integrate as K1
     from dynslam_tpu_torch.ops import raycast as K2
     from dynslam_tpu_torch.pipeline import fused_dynamic
-    from dynslam_tpu_torch.pipeline.builder import build_fused_dynamic
+    from dynslam_tpu_torch.pipeline.builder import (
+        attach_evaluation, build_fused_dynamic,
+    )
 
     pipe = build_fused_dynamic(config, config.calibration, device=device,
                                seed=SEED)
+    if eval_root is not None:
+        attach_evaluation(pipe, config, str(eval_root),
+                          csv_out_dir=str(eval_root / "csv"))
+    crops = CropRecorder(pipe)
     n = frames["left"].shape[0]
     lgs = [torch.tensor(x, dtype=torch.float32, device=device)
            for x in frames["left"]]
@@ -1038,16 +1119,16 @@ def run_dynamic(config, frames, device, out_dir: Path) -> dict:
     K1.integrate.launches = 0
     K2.candidate_bits.launches = 0
     K2.raycast.launches = 0
-    times, syncs, census = {}, {}, Counter()
+    times, syncs, censuses = {}, {}, {}
 
     def frame(i):
         pipe.process_frame(lgs[i], rgs[i], rgbs[i], dets[i])
 
     try:
-        for i in range(DYN_PROFILE_FRAMES.start):
+        for i in range(DYN_PROFILE_FRAMES.start if profile else n):
             t0 = time.perf_counter()
-            if i == DYN_CENSUS_FRAME:
-                census = count_syncs(lambda: frame(i))
+            if i in census_frames:
+                censuses[i] = count_syncs(lambda: frame(i))
             else:
                 frame(i)
             torch.cuda.synchronize()
@@ -1055,14 +1136,16 @@ def run_dynamic(config, frames, device, out_dir: Path) -> dict:
             syncs[i] = pipe.last_host_syncs if i else 0
             tracks = {t.id: t.state.value[0]
                       for t in pipe.tracker.active_tracks.values()}
-            say("dyn", f"frame {i}: {times[i]:.1f} ms, {len(dets[i])} "
+            say(tag, f"frame {i}: {times[i]:.1f} ms, {len(dets[i])} "
                        f"detections, tracks {tracks}, host syncs "
                        f"{syncs[i]}")
-        profile = profile_frames(
+        summary = profile_frames(
             lambda: [frame(i) for i in DYN_PROFILE_FRAMES],
-            len(DYN_PROFILE_FRAMES), out_dir, tag="dyn-profile",
-            name="profile_trace_dynamic.json")
+            len(DYN_PROFILE_FRAMES), out_dir, tag=f"{tag}-profile",
+            name=f"profile_trace_{tag}.json") if profile else None
         pipe.finalize()
+        if pipe.evaluation is not None:
+            pipe.evaluation.close()
         # the GUI's view: the static render with every object volume
         # rendered (K2 on the instance configuration) and tinted in
         rendered = sum(1 for t in pipe.tracker.active_tracks.values()
@@ -1079,9 +1162,11 @@ def run_dynamic(config, frames, device, out_dir: Path) -> dict:
     errs = [float(np.linalg.norm(
         np.linalg.inv(pipe.pose_history[k + 1].astype(np.float64))[:3, 3]
         - poses_gt[k][:3, 3])) for k in range(n)]
-    return dict(pipe=pipe, times=times, syncs=syncs, census=census,
-                launches=launches, recorder=recorder, errs=errs,
-                dispatches=pipe.current_frame_no - 1, profile=profile,
+    return dict(pipe=pipe, times=times, syncs=syncs,
+                census=(censuses[census_frames[0]][0] if census_frames
+                        else Counter()), censuses=censuses,
+                crops=crops, launches=launches, recorder=recorder, errs=errs,
+                dispatches=pipe.current_frame_no - 1, profile=summary,
                 preview=preview, rendered=rendered,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
@@ -1262,6 +1347,250 @@ def check_instance_raycast(pipe, track, frames, flush, parent=None,
                 stereo_err=stereo_err.abs().median().item(),
                 stereo_bias=stereo_err.median().item(),
                 frame=f, track=track.id, **times)
+
+
+# ---------------------------------------------------------------------------
+# phases 10-12: the evaluation, and K2 in its crop viewport
+# ---------------------------------------------------------------------------
+
+#: the LIDAR ground truth of phases 10-11: every 2nd pixel of the rendered
+#: depth, thinned to at most 120k points (a KITTI HDL-64 scan's size)
+LIDAR_STRIDE, LIDAR_MAX_POINTS = 2, 120_000
+#: phase 10: the fused render's correct share at the KITTI rule, correct /
+#: (total - missing), on frames >= 2 (the LIDAR is exact ground truth)
+MIN_KITTI_CORRECT = 0.9
+#: phase 11 counts the syncs of the frame phase 8 counts and of the next,
+#: which renders the object volumes for the evaluation, in its turns with
+#: evaluation on and off
+DYN_EVAL_CENSUS_FRAMES = (DYN_CENSUS_FRAME, DYN_CENSUS_FRAME + 1)
+
+
+def write_lidar(config, frames, root: Path) -> float:
+    """The synthetic rig's ``calib.txt`` and one LIDAR scan a frame
+    (``make_velodyne_points`` of the frame's rendered depth) under
+    ``root`` in the KITTI odometry layout; clears ``root/csv``. Returns
+    the mean points a scan."""
+    import shutil
+
+    from dynslam_tpu_torch.io import synthetic as syn
+    from dynslam_tpu_torch.io.calib import write_kitti_calibration
+    from dynslam_tpu_torch.io.velodyne import write_frame
+
+    kcal = syn.make_calibration(config.intrinsics, config.calibration)
+    shutil.rmtree(root / "csv", ignore_errors=True)
+    root.mkdir(parents=True, exist_ok=True)
+    write_kitti_calibration(str(root / "calib.txt"), kcal)
+    n = []
+    for f, depth in enumerate(frames["depth"]):
+        pts = syn.make_velodyne_points(
+            depth, config.intrinsics, kcal.velo_to_left_cam,
+            stride=LIDAR_STRIDE, max_points=LIDAR_MAX_POINTS)
+        write_frame(str(root / "velodyne" / f"{f:06d}.bin"), pts)
+        n.append(len(pts))
+    return sum(n) / len(n)
+
+
+def eval_files(ev, keys=("unified", "static", "dynamic", "memory",
+                         "tracker")) -> dict:
+    """The evaluation's CSV files under ``base_csv_name``'s names, as
+    lists of row dicts; raises if one of ``keys`` was not written."""
+    import csv
+
+    paths = dict(unified=ev.csv_unified, static=ev.csv_static,
+                 dynamic=ev.csv_dynamic, memory=ev.csv_memory,
+                 tracker=ev.csv_tracker)
+    out = {}
+    for k in keys:
+        path = Path(paths[k].output_path)
+        if not path.exists():
+            raise AssertionError(f"evaluation: {path.name} not written")
+        with open(path) as f:
+            out[k] = list(csv.DictReader(f))
+    return out
+
+
+def kitti_share(row) -> float:
+    """A depth row's fused correct share at the KITTI rule, correct /
+    (total - missing)."""
+    c, t, m = (int(row[f"fusion-{k}-3.00-kitti"])
+               for k in ("correct", "total", "missing"))
+    return c / (t - m) if t > m else 0.0
+
+
+def eval_job_cost(ev, frame: int, outputs, out_dir: Path) -> dict:
+    """One LIDAR job of the evaluation's worker (scan read, upload, eval,
+    fetch) run on this thread under torch.profiler: its kernel launches,
+    memsets and copies, and its wall time; then the device time of the
+    eval alone (``evaluate_depth_packed``, CUDA events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynslam_tpu_torch.eval.evaluation import evaluate_depth_packed
+
+    o = outputs
+    ev._eval_job(frame, o.raycast.depth, o.depth_m, None, o.used_blocks,
+                 o.decayed_blocks)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev._eval_job(frame, o.raycast.depth, o.depth_m, None, o.used_blocks,
+                     o.decayed_blocks)
+        wall = (time.perf_counter() - t0) * 1e3
+    trace = out_dir / "profile_trace_eval.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    count = Counter(e.get("cat") for e in events)
+    lidar = ev._lidar(ev.velodyne.read_frame(frame))
+    zero = torch.zeros(o.depth_m.shape, dtype=torch.int8,
+                       device=o.depth_m.device)
+    device_ms = median_ms(lambda: evaluate_depth_packed(
+        lidar, ev._velo_to_cam, ev._proj, o.raycast.depth, o.depth_m, zero,
+        ev._consts, o.used_blocks, o.decayed_blocks, ev._all_deltas,
+        ev._kitti_flags), 10)
+    return dict(kernels=count["kernel"], memsets=count["gpu_memset"],
+                copies=count["gpu_memcpy"], wall_ms=wall,
+                device_ms=device_ms, points=int(lidar.shape[0]))
+
+
+def same_syncs(on: Counter, off: Counter, what: str) -> int:
+    """Raise unless the frame thread's sync sites and counts with
+    evaluation on equal those with it off (two runs of one phase, both
+    after the process's first use of every constant); returns the count
+    with it on."""
+    if on != off:
+        raise AssertionError(
+            f"{what}: host syncs on the frame thread with evaluation on "
+            f"{dict(on.most_common())}, off {dict(off.most_common())}")
+    return sum(on.values())
+
+
+def check_static_eval(res, off: dict, config) -> dict:
+    """Phase 10: the static slice with evaluation on (``res``) beside an
+    eval-off run of the same phase (``off``)."""
+    on = check_slice(res, N_FRAMES, config)
+    ev = res["pipe"].evaluation
+    files = eval_files(ev, ("unified", "static", "dynamic", "memory"))
+    frames = [int(r["frame"]) for r in files["unified"]]
+    if frames != list(range(1, N_FRAMES)):
+        raise AssertionError(f"unified rows for frames {frames}, expected "
+                             f"1-{N_FRAMES - 1} in order")
+    mem = [(int(r["frame_id"]), int(r["memory_usage_bytes"]))
+           for r in files["memory"]]
+    if [f for f, _ in mem] != frames or not all(b > 0 for _, b in mem):
+        raise AssertionError(f"memory rows {mem}")
+    shares = {int(r["frame"]): kitti_share(r) for r in files["unified"]}
+    low = {f: s for f, s in shares.items()
+           if f >= 2 and s < MIN_KITTI_CORRECT}
+    if low:
+        raise AssertionError(f"KITTI-rule correct share below "
+                             f"{MIN_KITTI_CORRECT} on frames {low}")
+    n_on = same_syncs(res["census"], off["census"], f"frame {CENSUS_FRAME}")
+    if not n_on:
+        raise AssertionError(f"frame {CENSUS_FRAME}: no host sync counted")
+    if ev.failed_fetches:
+        raise AssertionError(f"{ev.failed_fetches} eval fetches failed")
+    return dict(on, shares=shares, syncs=n_on, files=files,
+                job_ms=list(ev.job_ms))
+
+
+def check_dynamic_eval(res, off: dict) -> dict:
+    """Phase 11: the dynamic slice with evaluation on (``res``) beside an
+    eval-off run of the same phase (``off``), both with sync censuses of
+    ``DYN_EVAL_CENSUS_FRAMES``."""
+    pipe = res["pipe"]
+    files = eval_files(pipe.evaluation)
+    disp = res["dispatches"]
+    renders = res["rendered"] + pipe.eval_crop_renders \
+        + pipe.eval_full_renders
+    want = dict(integrate=disp + res["recorder"].calls,
+                candidates=disp + renders, raycast=disp + renders)
+    if res["launches"] != want:
+        raise AssertionError(
+            f"dynamic slice with evaluation: launches {res['launches']}, "
+            f"expected {want} ({pipe.eval_crop_renders} crop and "
+            f"{pipe.eval_full_renders} full-frame eval renders)")
+    frames = [int(r["frame"]) for r in files["unified"]]
+    if frames != list(range(1, N_DYN)) or frames != [
+            int(r["frame"]) for r in files["dynamic"]]:
+        raise AssertionError(f"unified/dynamic rows for frames {frames}")
+    dyn = files["dynamic"]
+    total = sum(int(r["fusion-total-3.00"]) for r in dyn)
+    hit = sum(int(r["fusion-total-3.00"]) - int(r["fusion-missing-3.00"])
+              for r in dyn)
+    if total == 0 or hit == 0:
+        raise AssertionError(f"dynamic bucket: {total} points, {hit} with a "
+                             "fused depth")
+    trk = files["tracker"]
+    recon = max(int(r["reconstructed_tracks"]) for r in trk)
+    dropped = int(trk[-1]["dropped_detections_cum"])
+    if recon < 1 or dropped != 0 or len(trk) != len(frames):
+        raise AssertionError(f"tracker rows: {len(trk)}, at most {recon} "
+                             f"reconstructed, {dropped} dropped")
+    if pipe.eval_crop_renders < 1:
+        raise AssertionError("no crop-viewport render ran")
+    syncs = {f: same_syncs(res["censuses"][f][0], off["censuses"][f][0],
+                           f"frame {f}") for f in DYN_EVAL_CENSUS_FRAMES}
+    if pipe.evaluation.failed_fetches:
+        raise AssertionError(
+            f"{pipe.evaluation.failed_fetches} eval fetches failed")
+    ms = [res["times"][i] for i in DYN_FPS_FRAMES]
+    return dict(fps=len(ms) / (sum(ms) / 1e3), ms=ms, files=files,
+                total=total, hit=hit, recon=recon, syncs=syncs,
+                job_ms=list(pipe.evaluation.job_ms),
+                shares=[kitti_share(r) for r in files["unified"]])
+
+
+def check_crop_raycast(pipe, crops: CropRecorder, flush, parent=None,
+                       kernel_reps: int = 20, plain_reps: int = 3) -> dict:
+    """Phase 12: the pre-pass and K2 in the crop viewport — the largest
+    object volume at the end of phase 11, in the viewport of its last crop
+    render there — against
+    ``candidate_bits_ref`` and ``raycast_ref``, and their times; and the
+    march in a viewport 3 rows and 5 columns smaller, whose 8x4 tiles do
+    not divide it."""
+    import torch
+
+    from dynslam_tpu_torch.ops import raycast as K2
+    from dynslam_tpu_torch.ops import tsdf
+    from dynslam_tpu_torch.utils.se3 import inverse
+
+    icfg = pipe.icfg_render
+    slot, rec = max(crops.last.items(), key=lambda kv: int(
+        tsdf.pool_slot(pipe.carry.inst, kv[0]).valid.sum()))
+    state = tsdf.pool_slot(pipe.carry.inst, slot)
+    u0, v0 = rec["u0"], rec["v0"]
+    fx, fy, cx, cy = (float(x) for x in pipe.intr_host)
+    dev = pipe.device
+    c2w = torch.tensor(rec["c2w"], dtype=torch.float32, device=dev)
+    intr = torch.tensor([fx, fy, cx - u0, cy - v0], dtype=torch.float32,
+                        device=dev)
+    origin = tsdf.compute_origin(icfg, c2w)
+    grid = tsdf.build_local_grid(icfg, state, origin)
+    slots, mask = tsdf.visible_blocks(icfg, state, grid, origin,
+                                      inverse(c2w), intr4=intr)
+    pre = check_candidates(icfg, state, grid, origin, slots, mask, c2w,
+                           flush, parent)
+    pre.update(slots=slots, mask=mask)
+    rargs = (icfg, state, grid, origin, pre["bits"], c2w, intr)
+    got = K2._march_cuda(*rargs)
+    ref = K2.raycast_ref(*rargs)
+    torch.cuda.synchronize()
+    cmp = compare_march(got, ref, "K2 in the crop viewport")
+    cmp["reads"] = march_reads(*rargs, ref)
+    if cmp["hits"] < 200:
+        raise AssertionError(f"K2 in the crop viewport: {cmp['hits']} hits "
+                             "(need >= 200)")
+    ecfg = dataclasses.replace(icfg, height=icfg.height - 3,
+                               width=icfg.width - 5)
+    eargs = (ecfg, state, grid, origin, pre["bits"], c2w, intr)
+    edge = compare_march(K2._march_cuda(*eargs), K2.raycast_ref(*eargs),
+                         f"K2 in a {ecfg.height}x{ecfg.width} crop viewport")
+    times = march_times(*rargs, flush, pre, parent, cmp, kernel_reps,
+                        plain_reps)
+    return dict(cmp, pre=pre, slot=slot, u0=u0, v0=v0, edge=edge,
+                edge_hw=(ecfg.height, ecfg.width),
+                blocks=int(state.valid.sum()), **times)
 
 
 # ---------------------------------------------------------------------------
@@ -1492,6 +1821,127 @@ def main(argv=None) -> int:
                   f"{reads_text(k2o['reads'])}")
     say("K2-obj", timing_text(k2o))
 
+    # 10. the static slice with evaluation on
+    eval_dir = cuda_build.BUILD_DIR / "smoke_eval"
+    pts = write_lidar(config, frames, eval_dir / "static")
+    say("eval", f"build_fused_static as in phase 5 with FusedEvaluation "
+                f"attached, {N_FRAMES} frames submitted as main.run_fused "
+                f"does; LIDAR ground truth every {LIDAR_STRIDE}nd pixel of "
+                f"the rendered depth, {pts:.0f} points a scan")
+    # evaluation off and on in turns (off, on, on, off), all after the
+    # profiled phases: frame rates are compared only within such turns
+    fps, last = dict(on=[], off=[]), {}
+    for mode in ("off", "on", "on", "off"):
+        r = run_slice(dataclasses.replace(config, dynamic_mode=False),
+                      frames, device, tag=f"eval-{mode}",
+                      eval_root=eval_dir / "static" if mode == "on" else None)
+        fps[mode].append(check_slice(r, N_FRAMES, config)["fps"])
+        last[mode] = r
+    eres, ecensus = last["on"], last["off"]["census"]
+    del last
+    sev = check_static_eval(eres, dict(census=ecensus), config)
+    cost = eval_job_cost(eres["pipe"].evaluation, N_FRAMES - 1,
+                         eres["pipe"].last_outputs, cuda_build.BUILD_DIR)
+    say("eval", f"CSVs {sorted(sev['files'])} under base_csv_name's names; "
+                f"unified rows for frames 1-{N_FRAMES - 1}; KITTI-rule "
+                f"correct share "
+                f"{ {f: round(s, 4) for f, s in sev['shares'].items()} } "
+                f"(need >= {MIN_KITTI_CORRECT} from frame 2); host syncs on "
+                f"the frame thread in frame {CENSUS_FRAME}: {sev['syncs']} "
+                f"(eval off, same phase: {sum(ecensus.values())}; the same "
+                f"sites), the worker's: "
+                f"{dict(eres['worker_census'].most_common())}")
+    say("eval", f"FPS over the last {FPS_FRAMES} frames, in turns off, "
+                f"on, on, off: evaluation on "
+                f"{[round(x, 2) for x in fps['on']]}, off "
+                f"{[round(x, 2) for x in fps['off']]} (phase 5, before the "
+                f"profiled phases: {sl['fps']:.2f}); the "
+                f"worker's wall ms a job median "
+                f"{statistics.median(sev['job_ms']):.2f}, max "
+                f"{max(sev['job_ms']):.2f} ({len(sev['job_ms'])} jobs: scan "
+                f"read, upload, eval, fetch, sharing the interpreter with "
+                f"the frame thread); one job alone: "
+                f"{cost['wall_ms']:.2f} ms wall, {cost['kernels']} kernel "
+                f"launches, {cost['memsets']} memsets and {cost['copies']} "
+                f"copies; the eval's device time "
+                f"{cost['device_ms']:.4f} ms on {cost['points']} points")
+
+    # 11. the dynamic slice with evaluation on
+    dpts = write_lidar(dconfig, dyn_frames, eval_dir / "dynamic")
+    say("dyn-eval", f"build_fused_dynamic as in phase 8 with FusedEvaluation "
+                    f"attached, {N_DYN} frames, dispatch_lag 2, then finalize"
+                    f" and close; {dpts:.0f} LIDAR points a scan")
+    # in turns with evaluation off; the last of each is profiled (frames
+    # 10-11, after the frames the rate is taken over)
+    dfps, dprof = dict(on=[], off=[]), {}
+    for turn, mode in enumerate(("on", "off", "off", "on")):
+        on = mode == "on"
+        r = run_dynamic(dconfig, dyn_frames, device, cuda_build.BUILD_DIR,
+                        eval_root=eval_dir / "dynamic" if on else None,
+                        census_frames=DYN_EVAL_CENSUS_FRAMES,
+                        profile=turn >= 2, tag=f"dyn-eval-{mode}")
+        if r["profile"] is not None:
+            dprof[mode] = r["profile"]
+        if turn == 0:
+            djob_ms = list(r["pipe"].evaluation.job_ms)
+        ms = [r["times"][i] for i in DYN_FPS_FRAMES]
+        dfps[mode].append(len(ms) / (sum(ms) / 1e3))
+        if on:
+            deres = r
+        else:
+            doff = r
+    dev_ = check_dynamic_eval(deres, doff)
+    del doff
+    dpipe, ddisp = deres["pipe"], deres["dispatches"]
+    say("dyn-eval", f"launches {deres['launches']} over {ddisp} dispatches: "
+                    f"{dpipe.eval_crop_renders} crop-viewport and "
+                    f"{dpipe.eval_full_renders} full-frame object renders for"
+                    f" the evaluation ({dpipe.eval_crop_renders / ddisp:.2f}"
+                    f" and {dpipe.eval_full_renders / ddisp:.2f} a frame), "
+                    f"{deres['rendered']} in composited_preview; dynamic "
+                    f"bucket {dev_['total']} points over the run, "
+                    f"{dev_['hit']} with a fused depth; up to "
+                    f"{dev_['recon']} reconstructed tracks, 0 dropped "
+                    f"detections; KITTI-rule correct share (unified) "
+                    f"{[round(s, 4) for s in dev_['shares']]}")
+    say("dyn-eval", f"FPS over frames {DYN_FPS_FRAMES.start}-"
+                    f"{DYN_FPS_FRAMES.stop - 1}, in turns on, off, off, on: "
+                    f"evaluation on {[round(x, 2) for x in dfps['on']]}, off "
+                    f"{[round(x, 2) for x in dfps['off']]} (phase 8: "
+                    f"{dyn['fps']:.2f}); the last turn "
+                    f"{', '.join(f'{m:.1f}' for m in dev_['ms'])} ms; host "
+                    f"syncs on the frame thread by frame {dev_['syncs']} "
+                    f"(equal, site by site, to an eval-off turn's); the "
+                    f"worker's wall ms a job "
+                    f"in the first turn: median "
+                    f"{statistics.median(djob_ms):.2f}, max "
+                    f"{max(djob_ms):.2f} ({len(djob_ms)} jobs)")
+
+    # 12. the pre-pass and K2 in the crop viewport vs plain
+    k2c = check_crop_raycast(dpipe, deres["crops"], flush, parent)
+    cpre = k2c["pre"]
+    say("K2-crop-pre", f"candidate bitmap of slot {k2c['slot']}'s "
+                       f"{dpipe.icfg_render.local_dims} window "
+                       f"({k2c['blocks']} blocks) from the crop viewport at "
+                       f"(u0, v0) = ({k2c['u0']}, {k2c['v0']}) equals "
+                       f"candidate_bits_ref exactly ({cpre['n_cand']} "
+                       f"candidate cells of {cpre['n_live']} visible "
+                       "blocks)")
+    say("K2-crop-pre", timing_text(cpre))
+    say("K2-crop", f"crop-viewport render "
+                   f"{dpipe.icfg_render.height}x{dpipe.icfg_render.width} vs"
+                   f" raycast_ref: hit agreement {k2c['agree'] * 100:.4f}%, "
+                   f"median |ddepth| {k2c['median']:.3g} m, max "
+                   f"{k2c['max_abs_err']:.3g} m, points/colour/weight equal "
+                   f"on {k2c['epi_agree'] * 100:.4f}% of equal-depth pixels, "
+                   f"{k2c['hits']} hits; at {k2c['edge_hw'][0]}x"
+                   f"{k2c['edge_hw'][1]} (8x4 tiles cut at the edges): hit "
+                   f"agreement {k2c['edge']['agree'] * 100:.4f}%, median "
+                   f"|ddepth| {k2c['edge']['median']:.3g} m; "
+                   f"{k2c['samples']} samples (plain {k2c['ref_samples']}); "
+                   f"{reads_text(k2c['reads'])}")
+    say("K2-crop", timing_text(k2c))
+
     k1_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/integrate.cu",
                   replaces="dynslam_tpu/ops/pallas_integrate.py:536")
     k2_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/raycast.cu",
@@ -1515,6 +1965,14 @@ def main(argv=None) -> int:
                      dl["candidates"], dl["candidates"] / disp, opre),
         kernel_entry("raycast/object-volume", k2_src, dl["raycast"],
                      dl["raycast"] / disp, k2o),
+        # phase 11's crop-viewport renders (one pre-pass and one march
+        # each) with phase 12's times
+        kernel_entry("raycast/candidates-crop-viewport", k2_src,
+                     dpipe.eval_crop_renders,
+                     dpipe.eval_crop_renders / ddisp, cpre),
+        kernel_entry("raycast/crop-viewport", k2_src,
+                     dpipe.eval_crop_renders,
+                     dpipe.eval_crop_renders / ddisp, k2c),
     ]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,4 @@
-"""Configuration of the static slice — the fields of
+"""Configuration of the port's slices — the fields of
 ``dynslam_tpu/config.py`` that the port reads, with the same names and
 defaults (``tests/test_torch_config.py`` holds them equal).
 
@@ -168,8 +168,23 @@ class TrackerParams:
 
 
 @dataclass(frozen=True)
+class EvaluationParams:
+    """LIDAR depth-evaluation protocol (Evaluation.cpp:105-127)."""
+
+    enabled: bool = True
+    semantic_evaluation: bool = True
+    evaluation_delay: int = 0
+    #: delta_max sweep: 0.5 then 1..12 px, plus KITTI-style (3px AND 5%)
+    delta_maxes: Tuple[float, ...] = (0.5, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+    kitti_style: bool = True
+    min_depth_m: float = 0.5
+    max_depth_m: float = 20.0
+
+
+@dataclass(frozen=True)
 class DynSlamConfig:
-    """The top-level fields the static and dynamic slices read."""
+    """The top-level fields the static and dynamic slices and their
+    evaluation read."""
 
     frame_width: int = 1242
     frame_height: int = 375
@@ -182,13 +197,20 @@ class DynSlamConfig:
     vo: VisualOdometryParams = field(default_factory=VisualOdometryParams)
     stereo: StereoMatcherParams = field(default_factory=StereoMatcherParams)
     tracker: TrackerParams = field(default_factory=TrackerParams)
+    evaluation: EvaluationParams = field(default_factory=EvaluationParams)
     #: reconstruct moving objects in volumes of their own
     dynamic_mode: bool = True
     #: reconstruct every recognised car, moving or parked
     always_reconstruct_objects: bool = True
+    #: fuse/segment only every k-th frame (DynSlam.h:308-318); the fused
+    #: steps fuse every frame, the evaluation's CSV names record it
+    fusion_every: int = 1
     #: depth provider clamps: 0 = invalid
     min_depth_m: float = 0.5
     max_depth_m: float = 20.0
+    #: per-object direct (photometric) motion refinement, a staged-path
+    #: option; the evaluation's CSV names record it
+    use_direct_refinement: bool = False
 
     def replace(self, **kw) -> "DynSlamConfig":
         return dataclasses.replace(self, **kw)

@@ -1,1 +1,2 @@
-"""Inputs: the numpy synthetic scene renderer."""
+"""Inputs: the numpy synthetic scene renderer, segmentation masks,
+calibration, LIDAR scans and dataset layouts."""

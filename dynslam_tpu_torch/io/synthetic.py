@@ -3,7 +3,8 @@
 A numpy-only copy of the render path of ``dynslam_tpu/io/synthetic.py``
 (``Box``, ``SyntheticScene``, ``_texture``, ``_ray_scene_intersect``,
 ``render_frame``, ``render_stereo_frame``, ``straight_trajectory``,
-``to_uint8_rgb``). The JAX package's module imports its KITTI writers,
+``to_uint8_rgb``) and of the LIDAR ground truth (``make_calibration``,
+``make_velodyne_points``). The JAX package's module imports its KITTI writers,
 which pull in JAX through ``dynslam_tpu.io``; this copy imports nothing
 of the JAX package, so the port renders scenes on a machine without
 JAX. ``tests/test_torch_synthetic.py`` pins its images to the JAX
@@ -21,6 +22,7 @@ from typing import List, Tuple
 import numpy as np
 
 from dynslam_tpu_torch.config import Intrinsics, StereoCalibration
+from dynslam_tpu_torch.io.calib import KittiCalibration
 
 
 @dataclass
@@ -320,3 +322,64 @@ def straight_trajectory(
 def to_uint8_rgb(gray: np.ndarray) -> np.ndarray:
     g = np.clip(gray * 255.0 + 0.5, 0, 255).astype(np.uint8)
     return np.stack([g, g, g], axis=-1)
+
+
+def make_calibration(
+    intrinsics: Intrinsics, calib: StereoCalibration
+) -> KittiCalibration:
+    """KITTI-style projection matrices of the synthetic rig. Velodyne
+    frame: KITTI's (x forward, z up), 5 cm from the camera."""
+    K = np.array(
+        [
+            [intrinsics.fx, 0, intrinsics.cx, 0],
+            [0, intrinsics.fy, intrinsics.cy, 0],
+            [0, 0, 1, 0],
+        ]
+    )
+    P_right = K.copy()
+    P_right[0, 3] = -intrinsics.fx * calib.baseline_m
+    # velo -> cam: velo x->cam z, velo y->cam -x, velo z->cam -y
+    velo_to_cam = np.array(
+        [
+            [0, -1, 0, 0],
+            [0, 0, -1, -0.05],
+            [1, 0, 0, 0.05],
+            [0, 0, 0, 1],
+        ],
+        dtype=np.float64,
+    )
+    return KittiCalibration(
+        proj_left_gray=K,
+        proj_right_gray=P_right,
+        proj_left_color=K,
+        proj_right_color=P_right.copy(),
+        velo_to_left_cam=velo_to_cam,
+    )
+
+
+def make_velodyne_points(
+    depth_m: np.ndarray,
+    intrinsics: Intrinsics,
+    velo_to_cam: np.ndarray,
+    stride: int = 4,
+    max_points: int = 20000,
+) -> np.ndarray:
+    """LIDAR-like points sampled from the rendered depth (exact ground
+    truth) every ``stride`` pixels, in the velodyne frame, (N, 4) float32
+    with constant reflectance; evenly thinned to ``max_points``."""
+    h, w = depth_m.shape
+    fx, fy, cx, cy = intrinsics.as_tuple()
+    vv, uu = np.mgrid[0:h:stride, 0:w:stride]
+    z = depth_m[::stride, ::stride]
+    valid = z > 0
+    u, v, z = uu[valid], vv[valid], z[valid]
+    x = (u - cx) / fx * z
+    y = (v - cy) / fy * z
+    pts_cam = np.stack([x, y, z, np.ones_like(z)], axis=-1)
+    cam_to_velo = np.linalg.inv(velo_to_cam)
+    pts_velo = pts_cam @ cam_to_velo.T
+    pts_velo[:, 3] = 0.5  # reflectance
+    if len(pts_velo) > max_points:
+        idx = np.linspace(0, len(pts_velo) - 1, max_points).astype(int)
+        pts_velo = pts_velo[idx]
+    return pts_velo.astype(np.float32)

@@ -2,14 +2,20 @@
 configuration — the port of ``dynslam_tpu/pipeline/builder.py::
 build_fused``, ``pipeline/mapping.py::engine_config_from`` and the
 configuration part of ``FusedDynamicPipeline.__init__``, without the
-dataset IO (the caller feeds frames to ``process_frame``)."""
+frame reader (the caller feeds frames to ``process_frame``); and
+``attach_evaluation``, the ``with_evaluation`` part of ``build_fused``."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Optional
 
 from dynslam_tpu_torch.config import DynSlamConfig, StereoCalibration
 from dynslam_tpu_torch.device import DeviceLike
+from dynslam_tpu_torch.eval.fused_eval import FusedEvaluation
+from dynslam_tpu_torch.io.calib import read_kitti_calibration
+from dynslam_tpu_torch.io.input import FusedInput
 from dynslam_tpu_torch.ops.tsdf import TsdfConfig
 from dynslam_tpu_torch.pipeline.fused import FusedPipeline
 from dynslam_tpu_torch.pipeline.fused_dynamic import FusedDynamicPipeline
@@ -76,6 +82,26 @@ def instance_config_from(config: DynSlamConfig) -> TsdfConfig:
         cx=config.intrinsics.cx,
         cy=config.intrinsics.cy,
     )
+
+
+def attach_evaluation(pipe, config: DynSlamConfig, dataset_root: str,
+                      csv_out_dir: Optional[str] = None) -> FusedEvaluation:
+    """Attach a ``FusedEvaluation`` of the sequence at ``dataset_root``
+    (its calibration file and LIDAR scans, in the KITTI odometry layout,
+    from its first frame) to a fused pipeline as ``pipe.evaluation``, on
+    the pipeline's device; the CSVs go to ``csv_out_dir`` (default
+    ``<dataset_root>/csv``). The dynamic pipeline drives it itself; the
+    static pipeline's caller submits each frame's ``(raycast.depth,
+    depth_m, None, used_blocks, decayed_blocks)`` and closes it at the
+    end."""
+    inp = FusedInput(dataset_root)
+    calib = read_kitti_calibration(
+        os.path.join(dataset_root, inp.config.calibration_fname))
+    pipe.evaluation = FusedEvaluation(
+        dataset_root, inp.config, inp, calib, config,
+        csv_out_dir=csv_out_dir or os.path.join(dataset_root, "csv"),
+        device=pipe.device)
+    return pipe.evaluation
 
 
 def build_fused_dynamic(config: DynSlamConfig, calib: StereoCalibration,

@@ -323,6 +323,9 @@ class FusedPipeline:
         self.carry: Optional[FusedCarry] = None
         self.last_outputs: Optional[FusedOutputs] = None
         self._frames = 0
+        #: ``eval.fused_eval.FusedEvaluation`` (``builder.attach_evaluation``)
+        #: or None; the caller submits each frame's outputs to it
+        self.evaluation = None
 
     def _fresh_carry(self, lg, rg) -> FusedCarry:
         prev_l, prev_r = feat_ops.detect_features_pair(lg, rg, self.vo_params)

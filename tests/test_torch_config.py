@@ -12,7 +12,7 @@ from dynslam_tpu_torch import config as port_config
 CLASSES = ["StereoCalibration", "Intrinsics", "SceneParams",
            "VoxelDecayParams", "MapParams", "InstanceMapParams",
            "VisualOdometryParams", "StereoMatcherParams", "TrackerParams",
-           "DynSlamConfig"]
+           "EvaluationParams", "DynSlamConfig"]
 
 
 @pytest.mark.parametrize("name", CLASSES)
@@ -30,6 +30,20 @@ def test_fields_and_defaults_match(name):
                 jv).items(), f.name
         else:
             assert pv == jv, f.name
+
+
+def test_evaluation_fields_of_the_top_level():
+    """The top-level fields the evaluation reads exist on both sides with
+    the same defaults."""
+    for name in ("evaluation", "fusion_every", "use_direct_refinement",
+                 "dynamic_mode", "min_depth_m", "max_depth_m"):
+        pv = getattr(port_config.DynSlamConfig(), name)
+        jv = getattr(jax_config.DynSlamConfig(), name)
+        if dataclasses.is_dataclass(pv):
+            pv, jv = dataclasses.asdict(pv), dataclasses.asdict(jv)
+        assert pv == jv, name
+    assert port_config.MapParams().use_depth_weighting == \
+        jax_config.MapParams().use_depth_weighting
 
 
 def test_derived_values_match():

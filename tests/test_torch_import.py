@@ -1,5 +1,6 @@
 """The port imports torch and never jax: ``import dynslam_tpu_torch`` and
-every module of the static and dynamic slices leave no ``jax*`` module,
+every module of the static and dynamic slices and of the evaluation
+leave no ``jax*`` module,
 nothing of the JAX package ``dynslam_tpu`` and no ``cv2`` loaded. Checked in a fresh interpreter,
 because this test process imports jax (``tests/conftest.py``)."""
 
@@ -37,6 +38,14 @@ SLICE_MODULES = [
     "dynslam_tpu_torch.instances.tracker",
     "dynslam_tpu_torch.ops.masks",
     "dynslam_tpu_torch.pipeline.fused_dynamic",
+    # the evaluation slice
+    "dynslam_tpu_torch.io.calib",
+    "dynslam_tpu_torch.io.velodyne",
+    "dynslam_tpu_torch.io.input",
+    "dynslam_tpu_torch.eval.records",
+    "dynslam_tpu_torch.eval.csv_writer",
+    "dynslam_tpu_torch.eval.evaluation",
+    "dynslam_tpu_torch.eval.fused_eval",
 ]
 
 

@@ -97,6 +97,120 @@ def make_dynamic_frames(cfg, n=DYN_FRAMES):
     return out
 
 
+def write_eval_sequence(root, cfg, n: int, dynamic: bool):
+    """``n`` frames of the ``write_kitti_sequence`` scene at ``cfg``'s size,
+    with what the evaluation reads written under ``root`` in the KITTI
+    odometry layout: ``calib.txt`` and a LIDAR scan a frame
+    (``make_velodyne_points``). Returns [(left gray, right gray, RGB,
+    object ids of the dynamic boxes)] as ``make_dynamic_frames``."""
+    import os
+
+    from dynslam_tpu.io import velodyne
+    from dynslam_tpu.io.calib import write_kitti_calibration
+    from dynslam_tpu.io.synthetic import (
+        make_calibration, make_velodyne_points, to_uint8_rgb,
+    )
+    from dynslam_tpu.ops import depth as depth_ops
+
+    scene = SyntheticScene.default_scene(with_dynamic=dynamic, seed=0)
+    dyn_ids = [i + 1 for i, b in enumerate(scene.boxes) if b.is_dynamic]
+    kcal = make_calibration(cfg.intrinsics, cfg.calibration)
+    os.makedirs(root, exist_ok=True)
+    write_kitti_calibration(os.path.join(root, "calib.txt"), kcal)
+    poses = straight_trajectory(n)
+    out = []
+    for f in range(n):
+        fr = render_stereo_frame(scene, poses[f], cfg.intrinsics,
+                                 cfg.calibration, cfg.frame_width,
+                                 cfg.frame_height, frame=f)
+        velodyne.write_frame(
+            os.path.join(root, "velodyne", f"{f:06d}.bin"),
+            make_velodyne_points(fr["depth_m"], cfg.intrinsics,
+                                 kcal.velo_to_left_cam))
+        rgb = to_uint8_rgb(fr["left_gray"])
+        right = to_uint8_rgb(fr["right_gray"])
+        objid = np.where(np.isin(fr["object_id"], dyn_ids),
+                         fr["object_id"], 0)
+        out.append((np.asarray(depth_ops.rgb_to_gray(rgb)),
+                    np.asarray(depth_ops.rgb_to_gray(right)), rgb, objid))
+    return out
+
+
+def jax_fused_evaluation(root, cfg, csv_dir):
+    """The JAX package's ``FusedEvaluation`` of ``root`` as its
+    ``build_fused(with_evaluation=True)`` attaches it."""
+    import os
+
+    from dynslam_tpu.eval.fused_eval import FusedEvaluation
+    from dynslam_tpu.io.calib import read_kitti_calibration
+    from dynslam_tpu.io.depth_providers import InGraphDepthProvider
+    from dynslam_tpu.io.input import Input, kitti_odometry_config
+
+    icfg = kitti_odometry_config()
+    inp = Input(root, icfg, InGraphDepthProvider(),
+                (cfg.frame_width, cfg.frame_height), cfg.calibration)
+    return FusedEvaluation(
+        root, icfg, inp, read_kitti_calibration(os.path.join(root,
+                                                             "calib.txt")),
+        cfg, csv_out_dir=csv_dir)
+
+
+#: candidate blocks a tile of the JAX package's Pallas raycast keeps in
+#: the slice tests: more than any tile of their scenes holds (at most 120)
+RENDER_CAND_K = 256
+#: each render's largest per-tile candidate count (``jax_kernel_renders``);
+#: one list for the process, as a jitted step traced by an earlier test
+#: calls the callback it was traced with
+_CAND_FILL: list = []
+
+
+def jax_kernel_renders(mp) -> list:
+    """Make a JAX pipeline built with ``use_pallas=True`` run on the CPU
+    with the port's render rule, ``mp`` a ``pytest.MonkeyPatch``:
+
+    - the Pallas raycast in interpret mode (its own tests' way), with
+      per-tile candidate lists of ``RENDER_CAND_K`` blocks; the port's K2
+      is its translation with an uncapped candidate bitmap, so the two
+      agree where no tile's list overflows;
+    - the XLA fusion ``tsdf.integrate`` in place of the Pallas fusion (the
+      rule the port's plain K1 is held to).
+
+    Returns a list, emptied here, that gets each render's largest
+    per-tile candidate count: a test asserts they stay under
+    ``RENDER_CAND_K``. (The CPU
+    path's dense XLA raycast is another rule, and the default 64
+    candidates drop far blocks from crowded tiles: either leaves a few
+    percent of the evaluated points on the other side of a threshold.)"""
+    import dataclasses
+
+    import dynslam_tpu.ops.pallas_integrate as jpi
+    import dynslam_tpu.ops.pallas_raycast as jpr
+    from dynslam_tpu.ops import tsdf
+
+    def integrate(cfg, state, slots, mask, rgb, depth, w2c, fidx,
+                  intr4=None):
+        return tsdf.integrate(cfg, state, slots, mask, rgb, depth, w2c,
+                              fidx, intr4=intr4)
+
+    fill = _CAND_FILL
+    fill.clear()
+    build, tiled = jpr.build_candidates, jpr.raycast_tiled
+
+    def candidates(*args, **kw):
+        out = build(*args, **kw)
+        jax.debug.callback(lambda n: fill.append(int(n)), out[-1].max())
+        return out
+
+    def raycast(cfg, *args, **kw):
+        return tiled(dataclasses.replace(cfg, raycast_cand_k=RENDER_CAND_K),
+                     *args, interpret=True, **kw)
+
+    mp.setattr(jpi, "integrate_pallas", integrate)
+    mp.setattr(jpr, "build_candidates", candidates)
+    mp.setattr(jpr, "raycast_tiled", raycast)
+    return fill
+
+
 def jax_dynamic_sampler(base_key, K: int, cam_iters: int, obj_iters: int):
     """The port's ``sampler`` hook fed with the JAX dynamic step's draws:
     the camera's from ``fold_in(base_key, frame_idx)``, mask j's from
