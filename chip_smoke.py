@@ -80,7 +80,31 @@ and never prints its last line):
     ``raycast_ref``, also in a viewport 3 rows and 5 columns smaller (8x4
     tiles cut at its edges), with the times of phases 4 and 9.
 
-Phases 3, 4, 7, 9 and 12 also print each kernel's times: the bare kernel
+13. the staged dynamic slice through the port's CLI: phase 8's 12 frames
+    written as a KITTI-odometry folder with the port's writers (PNGs, ELAS
+    XML depth from the rendered depth, MNC dumps, ``calib.txt``, the
+    ground-truth poses, LIDAR as phase 10 writes it), then
+    ``dynslam_tpu_torch.main.main`` in this process at ``DynSlamConfig()``
+    with ``--min_decay_age 4 --enable_evaluation --evaluation_delay 2
+    --dump_previews_every 4``. Checks trajectory rows, drift, a Dynamic
+    track with a pooled volume of > 100 blocks, no dropped blocks, the CSV
+    files and their rows, a tinted car in a colour preview, K1 launches a frame (1 static + at most 1 pool
+    flush, or the catch-up chain of a volume initialised that frame) and
+    K2 launches a frame (at most 2 + the renderable tracks);
+    prints the frame rate over frames 5-9, the host syncs of frame 6,
+    peak memory and the timing report. Then a split run (``--frame_limit
+    8 --checkpoint_out --enable_evaluation`` at delay 0, whose static
+    bucket's KITTI-rule share must reach 0.9 from frame 2) resumed with
+    ``--resume_from`` for frames 8-11, held to tests/test_checkpoint.py's
+    criteria against the continuous run;
+14. K1 on the pool flush: phase 13's flush over the most volumes (their
+    full-frame masked views) against ``integrate_ref`` volume by volume;
+15. K2 in the staged roles: the static map from a preview pose off the
+    trajectory (3 m up, 6 m back, pitched 15 degrees down) and one pool
+    slot at the render pose ``composite_instance_depth_maps`` uses,
+    against ``candidate_bits_ref`` and ``raycast_ref``.
+
+Phases 3, 4, 7, 9, 12, 14 and 15 also print each kernel's times: the bare kernel
 (its prepared C call alone, no Python conversion between launches), warm
 (50 back-to-back launches between two CUDA events) and cold (the L2
 flushed by a 128 MB write before each launch, an event pair around each);
@@ -1594,6 +1618,331 @@ def check_crop_raycast(pipe, crops: CropRecorder, flush, parent=None,
 
 
 # ---------------------------------------------------------------------------
+# phases 13-15: the staged pipeline through the CLI, and the kernels in its
+# roles
+# ---------------------------------------------------------------------------
+
+#: phase 13: the CLI's evaluation delay and preview period, the split run's
+#: checkpoint frame and the frame whose host syncs are counted
+STAGED_DELAY, STAGED_PREVIEWS, STAGED_SPLIT = 2, 4, 8
+STAGED_CENSUS_FRAME = 6
+#: phase 13's split run against the continuous one (tests/test_checkpoint.py)
+SPLIT_BLOCKS_RTOL, SPLIT_PREFIX_ATOL = 0.15, 1e-6
+
+
+def write_staged_sequence(config, frames, root: Path) -> float:
+    """Phase 8's frames as a KITTI-odometry folder under ``root``, written
+    with the port's writers: the colour pair (the gray frames in three
+    channels), the ELAS depth dumps of the rendered depth, the MNC dumps of
+    the dynamic boxes, ``calib.txt``, the ground-truth poses and LIDAR as
+    phase 10 writes it. Returns the mean LIDAR points a scan."""
+    import shutil
+
+    import numpy as np
+
+    from dynslam_tpu_torch.io import synthetic as syn
+    from dynslam_tpu_torch.io.calib import write_kitti_poses
+
+    shutil.rmtree(root, ignore_errors=True)
+    pts = write_lidar(config, frames, root)
+    for sub in ("image_2", "image_3", "precomputed-depth/Frames",
+                "seg_image_2/mnc"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    write_kitti_poses(str(root / "ground-truth-poses.txt"),
+                      frames["poses"].astype(np.float64))
+    for f in range(frames["left"].shape[0]):
+        objid = frames["objid"][f]
+        syn.write_kitti_frame(
+            str(root), f, np.repeat(frames["left"][f][..., None], 3, -1),
+            np.repeat(frames["right"][f][..., None], 3, -1),
+            frames["depth"][f],
+            object_masks=[objid == k for k in np.unique(objid) if k > 0])
+    return pts
+
+
+class StagedProbe:
+    """Instruments the staged pipeline while the CLI drives it: per frame
+    (``DynSlam.process_frame``, synchronised at its end) the kernels'
+    launches, the pool flushes and object renders, the renderable tracks
+    and the wall time, the host syncs of one frame; the tinted pixels of
+    each composited colour preview; the flush over the most volumes
+    (``FusionRecorder``) for phase 14. Launches made between frames (the
+    previews) count in the totals only."""
+
+    def __init__(self, census_frame: Optional[int] = None):
+        self.census_frame = census_frame
+        self.frames, self.tinted, self.census = {}, [], Counter()
+        self.dyn, self.pool_renders = None, 0
+
+    def __enter__(self):
+        from dynslam_tpu_torch.instances import volume_pool
+        from dynslam_tpu_torch.pipeline.dynslam import DynSlam
+        from dynslam_tpu_torch.pipeline.mapping import PreviewType
+
+        self._saved = (DynSlam.process_frame,
+                       DynSlam.get_static_map_raycast_preview,
+                       volume_pool.InstanceVolumePool.raycast,
+                       volume_pool.integrate_many)
+        process, composite, raycast, _ = self._saved
+        self.recorder = FusionRecorder(volume_pool.integrate_many)
+        volume_pool.integrate_many = self.recorder
+        probe = self
+
+        def process_frame(dyn, input_):
+            return probe._frame(process, dyn, input_)
+
+        def composited(dyn, cam_to_world=None, preview=PreviewType.COLOR,
+                       compositing=True):
+            img = composite(dyn, cam_to_world, preview, compositing)
+            if preview == PreviewType.COLOR and compositing:
+                plain = dyn.static_scene.get_image(preview, cam_to_world)
+                probe.tinted.append((dyn.current_frame_no - 1, int(
+                    (img != plain).any(-1).sum())))
+            return img
+
+        def pool_raycast(pool, slot, cam_to_world):
+            probe.pool_renders += 1
+            return raycast(pool, slot, cam_to_world)
+
+        DynSlam.process_frame = process_frame
+        DynSlam.get_static_map_raycast_preview = composited
+        volume_pool.InstanceVolumePool.raycast = pool_raycast
+        return self
+
+    def __exit__(self, *exc):
+        from dynslam_tpu_torch.instances import volume_pool
+        from dynslam_tpu_torch.pipeline.dynslam import DynSlam
+
+        (DynSlam.process_frame, DynSlam.get_static_map_raycast_preview,
+         volume_pool.InstanceVolumePool.raycast,
+         volume_pool.integrate_many) = self._saved
+
+    def _counts(self):
+        from dynslam_tpu_torch.ops import integrate as K1
+        from dynslam_tpu_torch.ops import raycast as K2
+
+        return (K1.integrate.launches, K2.candidate_bits.launches,
+                K2.raycast.launches, self.recorder.calls, self.pool_renders)
+
+    def _frame(self, process, dyn, input_):
+        import torch
+
+        self.dyn = dyn
+        n = dyn.current_frame_no
+        rec = dyn.instance_reconstructor
+        had = set() if rec is None else {
+            t.id for t in rec.tracker.active_tracks.values()
+            if t.has_reconstruction()}
+        before = self._counts()
+        t0 = time.perf_counter()
+        out = []
+        if n == self.census_frame:
+            self.census, _ = count_syncs(
+                lambda: out.append(process(dyn, input_)))
+        else:
+            out.append(process(dyn, input_))
+        torch.cuda.synchronize()
+        if out[0]:
+            tracks = [] if rec is None else list(
+                rec.tracker.active_tracks.values())
+            self.frames[n] = dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                renderable=len(rec._active_renderable_tracks())
+                if rec is not None else 0,
+                # a volume initialised this frame fuses its earlier views
+                # in a chain of flushes (one per view: the chain is
+                # sequential per volume)
+                catchup=max([len(t.frames) for t in tracks
+                             if t.has_reconstruction() and t.id not in had],
+                            default=0),
+                **dict(zip(("k1", "pre", "march", "flushes", "pool"),
+                           (a - b for a, b in zip(self._counts(), before)))))
+        return out[0]
+
+
+def run_cli(args, census_frame=None) -> StagedProbe:
+    """``dynslam_tpu_torch.main.main(args)`` in this process under a
+    ``StagedProbe``; the kernels' launch counts are set to 0 just before
+    and read just after."""
+    import torch
+
+    from dynslam_tpu_torch import main as cli
+    from dynslam_tpu_torch.ops import integrate as K1
+    from dynslam_tpu_torch.ops import raycast as K2
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K1.integrate.launches = 0
+    K2.candidate_bits.launches = 0
+    K2.raycast.launches = 0
+    with StagedProbe(census_frame) as probe:
+        t0 = time.perf_counter()
+        rc = cli.main([str(a) for a in args])
+        probe.wall_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"dynslam_tpu_torch.main exited {rc}")
+    probe.launches = dict(integrate=K1.integrate.launches,
+                          candidates=K2.candidate_bits.launches,
+                          raycast=K2.raycast.launches)
+    probe.peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    return probe
+
+
+def check_staged(probe, frames, out: Path) -> dict:
+    """Phase 13's checks of the continuous run."""
+    import numpy as np
+
+    from dynslam_tpu_torch.instances.track import TrackState
+    from dynslam_tpu_torch.instances.volume_pool import PooledVolume
+    from dynslam_tpu_torch.io.calib import read_kitti_poses
+
+    dyn, n = probe.dyn, frames["left"].shape[0]
+    if sorted(probe.frames) != list(range(n)):
+        raise AssertionError(f"frames run: {sorted(probe.frames)}")
+    traj = read_kitti_poses(str(out / "trajectory.txt"))
+    if traj.shape[0] != n:
+        raise AssertionError(f"trajectory rows {traj.shape[0]} != {n}")
+    travelled = SPEED * (n - 1)
+    err = float(np.linalg.norm(traj[-1][:3, 3]
+                               - frames["poses"][n - 1][:3, 3]))
+    if not err <= 0.02 * travelled:
+        raise AssertionError(f"final pose error {err:.3f} m > 2% of "
+                             f"{travelled:.1f} m")
+    recon = [(t.id, t.state.value, t.reconstruction.get_used_block_count())
+             for t in dyn.instance_reconstructor.tracker.active_tracks
+             .values() if isinstance(t.reconstruction, PooledVolume)]
+    if not any(s == TrackState.DYNAMIC.value and b > 100
+               for _, s, b in recon):
+        raise AssertionError(f"no Dynamic track with a pooled volume of "
+                             f"> 100 blocks: {recon}")
+    dropped = dyn.static_scene.get_dropped_allocation_count()
+    if dropped:
+        raise AssertionError(f"{dropped} blocks dropped")
+    files = eval_files(dyn.evaluation)
+    shares = {b: {int(r["frame"]): kitti_share(r) for r in files[b]}
+              for b in ("unified", "static", "dynamic")}
+    for b, v in shares.items():
+        if sorted(v) != list(range(n - STAGED_DELAY)):
+            raise AssertionError(f"{b} rows for frames {sorted(v)}")
+    mem = [int(r["frame_id"]) for r in files["memory"]]
+    trk = [int(r["frame_id"]) for r in files["tracker"]]
+    if mem != list(range(n)) or trk != mem:
+        raise AssertionError(f"memory rows {mem}, tracker rows {trk}")
+    if not probe.tinted or max(t for _, t in probe.tinted) < 100:
+        raise AssertionError(f"tinted pixels in the colour previews: "
+                             f"{probe.tinted}")
+    for f, r in probe.frames.items():
+        static = int(f >= 1)
+        if r["flushes"] > max(1, r["catchup"]) \
+                or r["k1"] != static + r["flushes"]:
+            raise AssertionError(
+                f"frame {f}: {r['k1']} K1 launches, {r['flushes']} pool "
+                f"flushes, catch-up chain {r['catchup']}")
+        for k in ("pre", "march"):
+            if r[k] > 2 + r["renderable"]:
+                raise AssertionError(
+                    f"frame {f}: {r[k]} K2 {k} launches, {r['renderable']} "
+                    "renderable tracks")
+    ms = [probe.frames[i]["ms"] for i in DYN_FPS_FRAMES]
+    return dict(err=err, travelled=travelled, recon=recon, files=files,
+                shares=shares, fps=len(ms) / (sum(ms) / 1e3), ms=ms,
+                blocks=dyn.static_scene.get_used_block_count())
+
+
+def check_own_frame_eval(probe) -> dict:
+    """The split run evaluates each frame at its own pose with its own
+    segmentation (delay 0): the static bucket's KITTI-rule correct share
+    >= 0.9 from frame 2 (the input depth and the LIDAR are exact ground
+    truth). With delay 2 the reference routes a past frame with the
+    latest detections and renders the objects' latest volumes at the past
+    pose, so moving cars count against it (printed, not held)."""
+    files = eval_files(probe.dyn.evaluation, ("unified", "static",
+                                              "dynamic"))
+    shares = {b: {int(r["frame"]): kitti_share(r) for r in files[b]}
+              for b in files}
+    low = {f: v for f, v in shares["static"].items()
+           if f >= 2 and v < MIN_KITTI_CORRECT}
+    if sorted(shares["static"]) != list(range(STAGED_SPLIT)) or low:
+        raise AssertionError(f"static bucket's KITTI-rule share below "
+                             f"{MIN_KITTI_CORRECT} on frames {low} (rows "
+                             f"{sorted(shares['static'])})")
+    return shares
+
+
+def check_split(cont, resumed, out_cont: Path, out_resumed: Path) -> dict:
+    """tests/test_checkpoint.py's criteria: equal frame counts, the
+    checkpointed prefix of the trajectory equal, used blocks within 15%."""
+    import numpy as np
+
+    from dynslam_tpu_torch.io.calib import read_kitti_poses
+
+    a = read_kitti_poses(str(out_cont / "trajectory.txt"))
+    b = read_kitti_poses(str(out_resumed / "trajectory.txt"))
+    if a.shape != b.shape or cont.dyn.current_frame_no \
+            != resumed.dyn.current_frame_no:
+        raise AssertionError(f"trajectories {a.shape} / {b.shape}")
+    gap = float(np.abs(a[:STAGED_SPLIT] - b[:STAGED_SPLIT]).max())
+    if gap > SPLIT_PREFIX_ATOL:
+        raise AssertionError(f"checkpointed prefix differs by {gap:.3g}")
+    ua = cont.dyn.static_scene.get_used_block_count()
+    ub = resumed.dyn.static_scene.get_used_block_count()
+    if abs(ua - ub) > SPLIT_BLOCKS_RTOL * ua:
+        raise AssertionError(f"used blocks {ub} vs {ua} continuous")
+    return dict(gap=gap, blocks=(ua, ub),
+                frames=sorted(resumed.frames))
+
+
+def free_pose(c2w, up=3.0, back=6.0, pitch_deg=15.0):
+    """A preview pose off the trajectory: ``up`` m above and ``back`` m
+    behind the camera, pitched ``pitch_deg`` down."""
+    import numpy as np
+
+    a = np.radians(pitch_deg)
+    rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                   [0, np.sin(a), np.cos(a)]])
+    out = np.asarray(c2w, np.float64).copy()
+    out[:3, :3] = out[:3, :3] @ rx.T
+    out[:3, 3] = out[:3, 3] + out[:3, :3] @ np.array([0.0, -up, -back])
+    return out.astype(np.float32)
+
+
+def check_view_raycast(cfg, state, c2w_np, intr, flush, parent, what,
+                       min_hits: int, kernel_reps: int = 20,
+                       plain_reps: int = 3) -> dict:
+    """The pre-pass and K2 on ``state`` from ``c2w_np`` (host 4x4), the
+    window and visible list built at that pose as ``MapEngine`` and the
+    pool build them, against ``candidate_bits_ref`` and ``raycast_ref``,
+    and their times."""
+    import torch
+
+    from dynslam_tpu_torch.ops import raycast as K2
+    from dynslam_tpu_torch.ops import tsdf
+    from dynslam_tpu_torch.pipeline.mapping import lu_inverse_np
+
+    dev = state.device
+    c2w = torch.tensor(c2w_np, dtype=torch.float32, device=dev)
+    w2c = torch.tensor(lu_inverse_np(c2w_np), device=dev)
+    origin = tsdf.compute_origin(cfg, c2w)
+    grid = tsdf.build_local_grid(cfg, state, origin)
+    slots, mask = tsdf.visible_blocks(cfg, state, grid, origin, w2c)
+    pre = check_candidates(cfg, state, grid, origin, slots, mask, c2w,
+                           flush, parent)
+    pre.update(slots=slots, mask=mask)
+    rargs = (cfg, state, grid, origin, pre["bits"], c2w, intr)
+    got = K2._march_cuda(*rargs)
+    ref = K2.raycast_ref(*rargs)
+    torch.cuda.synchronize()
+    cmp = compare_march(got, ref, what)
+    cmp["reads"] = march_reads(*rargs, ref)
+    if cmp["hits"] < min_hits:
+        raise AssertionError(f"{what}: {cmp['hits']} hits (need >= "
+                             f"{min_hits})")
+    times = march_times(*rargs, flush, pre, parent, cmp, kernel_reps,
+                        plain_reps)
+    return dict(cmp, pre=pre, **times)
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_kernels(parent: Optional[Path]) -> dict:
@@ -1942,6 +2291,115 @@ def main(argv=None) -> int:
                    f"{reads_text(k2c['reads'])}")
     say("K2-crop", timing_text(k2c))
 
+    # 13. the staged dynamic slice through the CLI
+    sdir = cuda_build.BUILD_DIR / "smoke_staged"
+    seq, out = sdir / "seq", sdir / "out"
+    t0 = time.perf_counter()
+    spts = write_staged_sequence(dconfig, dyn_frames, seq)
+    base = ["--dataset_root", seq, "--min_decay_age", MIN_DECAY_AGE]
+    say("staged", f"phase 8's {N_DYN} frames written as a KITTI-odometry "
+                  f"folder in {time.perf_counter() - t0:.1f} s ({spts:.0f} "
+                  f"LIDAR points a scan); dynslam_tpu_torch.main at "
+                  f"DynSlamConfig() with --min_decay_age {MIN_DECAY_AGE} "
+                  f"--enable_evaluation --evaluation_delay {STAGED_DELAY} "
+                  f"--dump_previews_every {STAGED_PREVIEWS}")
+    st = run_cli(base + ["--out", out, "--enable_evaluation",
+                         "--evaluation_delay", STAGED_DELAY,
+                         "--dump_previews_every", STAGED_PREVIEWS],
+                 census_frame=STAGED_CENSUS_FRAME)
+    stc = check_staged(st, dyn_frames, out)
+    per = {f: (r["k1"], r["flushes"], r["catchup"], r["pre"], r["march"],
+               r["renderable"]) for f, r in st.frames.items()}
+    say("staged", f"launches {st.launches} ({st.recorder.calls} pool "
+                  f"flushes, {st.pool_renders} pool-slot renders); per frame "
+                  f"(K1, flushes, catch-up chain, K2 pre-pass, K2 march, "
+                  f"renderable tracks) "
+                  f"{per}; volumes {stc['recon']}; final pose error "
+                  f"{stc['err'] * 100:.2f} cm over {stc['travelled']:.1f} m;"
+                  f" static blocks {stc['blocks']}, 0 dropped; tinted "
+                  f"preview pixels {st.tinted}; peak memory "
+                  f"{st.peak_gb:.2f} GB")
+    say("staged", f"CSVs {sorted(stc['files'])}, rows for frames 0-"
+                  f"{N_DYN - 1 - STAGED_DELAY} (delay {STAGED_DELAY}); "
+                  f"KITTI-rule correct share by bucket (delayed frames "
+                  f"routed with the latest detections, as the reference "
+                  f"routes them): " + "; ".join(
+                      f"{b} {[round(v, 4) for v in sh.values()]}"
+                      for b, sh in stc["shares"].items()))
+    say("staged", f"{stc['fps']:.2f} FPS over frames {DYN_FPS_FRAMES.start}-"
+                  f"{DYN_FPS_FRAMES.stop - 1} "
+                  f"({', '.join(f'{m:.1f}' for m in stc['ms'])} ms); whole "
+                  f"CLI run {st.wall_s:.1f} s; host syncs in frame "
+                  f"{STAGED_CENSUS_FRAME}: {sum(st.census.values())} "
+                  f"{dict(st.census.most_common())}")
+    print(st.dyn.get_timing_report(), flush=True)
+    ck = sdir / "split.npz"
+    split = run_cli(base + ["--out", sdir / "out_split", "--frame_limit",
+                            STAGED_SPLIT, "--checkpoint_out", ck,
+                            "--enable_evaluation"])
+    own = check_own_frame_eval(split)
+    say("staged", f"split run, evaluation delay 0: KITTI-rule correct share "
+                  f"by bucket " + "; ".join(
+                      f"{b} {[round(v, 4) for v in sh.values()]}"
+                      for b, sh in own.items())
+        + f" (static: need >= {MIN_KITTI_CORRECT} from frame 2)")
+    resumed = run_cli(base + ["--out", sdir / "out_resumed",
+                              "--resume_from", ck])
+    spl = check_split(st, resumed, out, sdir / "out_resumed")
+    say("staged", f"split run: {len(split.frames)} frames, checkpoint, "
+                  f"resumed for frames {spl['frames']}: trajectory prefix "
+                  f"equal within {spl['gap']:.3g}, used blocks "
+                  f"{spl['blocks'][1]} vs {spl['blocks'][0]} continuous "
+                  f"(need within {SPLIT_BLOCKS_RTOL:.0%})")
+
+    # 14. K1 on the pool flush vs plain
+    k1p = check_integrate_many(st.recorder.best, flush, parent)
+    say("K1-pool", f"pool flush over {len(k1p['vols'])} object volumes "
+                   f"{k1p['vols']} at full frame ({k1p['blocks']} visible "
+                   f"blocks, {k1p['pixels']} distinct pixels read) vs "
+                   f"integrate_ref per volume: {k1p['exact'] * 100:.4f}% "
+                   f"words bit-exact (worst volume; need >= "
+                   f"{K1_MIN_EXACT * 100:.2f}%), max |dsdf| "
+                   f"{k1p['max_abs_err']:.3g}, |dw| {k1p['dw']} q, |dcolor| "
+                   f"{k1p['dcolor']}")
+    say("K1-pool", timing_text(k1p))
+
+    # 15. K2 at a free pose and on a pool slot vs plain
+    eng = st.dyn.static_scene
+    k2f = check_view_raycast(eng.cfg, eng.state, free_pose(eng.cam_to_world),
+                             eng.intrinsics_vec, flush, parent,
+                             "K2 at the free pose", min_hits=20_000)
+    say("K2-free-pre", f"candidate bitmap at the free pose equals "
+                       f"candidate_bits_ref exactly ({k2f['pre']['n_cand']} "
+                       f"candidate cells of {k2f['pre']['n_live']} visible "
+                       "blocks)")
+    say("K2-free-pre", timing_text(k2f["pre"]))
+    say("K2-free", f"static map 3 m up, 6 m back, 15 deg down vs raycast_ref"
+                   f": hit agreement {k2f['agree'] * 100:.4f}%, median "
+                   f"|ddepth| {k2f['median']:.3g} m, {k2f['hits']} hits; "
+                   f"{reads_text(k2f['reads'])}")
+    say("K2-free", timing_text(k2f))
+    rec = st.dyn.instance_reconstructor
+    track = max((t for t in rec.tracker.active_tracks.values()
+                 if t.has_reconstruction()),
+                key=lambda t: t.reconstruction.get_used_block_count())
+    pool = rec.volume_pool
+    k2s = check_view_raycast(
+        pool.cfg, pool.slot_state(track.reconstruction.slot),
+        rec._instance_render_pose(track, st.dyn.get_current_pose()),
+        pool.intrinsics_vec, flush, parent, "K2 on a pool slot",
+        min_hits=500)
+    say("K2-slot-pre", f"candidate bitmap of slot {track.reconstruction.slot}"
+                       f" (track {track.id}) equals candidate_bits_ref "
+                       f"exactly ({k2s['pre']['n_cand']} candidate cells of "
+                       f"{k2s['pre']['n_live']} visible blocks)")
+    say("K2-slot-pre", timing_text(k2s["pre"]))
+    say("K2-slot", f"pool slot at the composite's render pose vs raycast_ref"
+                   f": hit agreement {k2s['agree'] * 100:.4f}%, median "
+                   f"|ddepth| {k2s['median']:.3g} m, {k2s['hits']} hits; "
+                   f"{reads_text(k2s['reads'])}")
+    say("K2-slot", timing_text(k2s))
+
     k1_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/integrate.cu",
                   replaces="dynslam_tpu/ops/pallas_integrate.py:536")
     k2_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/raycast.cu",
@@ -1973,6 +2431,28 @@ def main(argv=None) -> int:
         kernel_entry("raycast/crop-viewport", k2_src,
                      dpipe.eval_crop_renders,
                      dpipe.eval_crop_renders / ddisp, k2c),
+    ]
+    # phase 13's launches (the CLI run, previews included) by role, with
+    # the times of phases 3, 14 and 15: the static map at one volume, the
+    # pool flush, the static map's renders (prepare, the delayed
+    # evaluation's past pose, previews) and the pool-slot renders
+    sl, flushes, slot_r = st.launches, st.recorder.calls, st.pool_renders
+    kernels += [
+        kernel_entry("integrate/staged-static-map", k1_src,
+                     sl["integrate"] - flushes,
+                     (sl["integrate"] - flushes) / N_DYN, k1),
+        kernel_entry("integrate/pool-flush", k1_src, flushes,
+                     flushes / N_DYN, k1p),
+        kernel_entry("raycast/candidates-staged-static-map", k2_src,
+                     sl["candidates"] - slot_r,
+                     (sl["candidates"] - slot_r) / N_DYN, k2f["pre"]),
+        kernel_entry("raycast/staged-static-map", k2_src,
+                     sl["raycast"] - slot_r,
+                     (sl["raycast"] - slot_r) / N_DYN, k2f),
+        kernel_entry("raycast/candidates-pool-slot", k2_src, slot_r,
+                     slot_r / N_DYN, k2s["pre"]),
+        kernel_entry("raycast/pool-slot", k2_src, slot_r, slot_r / N_DYN,
+                     k2s),
     ]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

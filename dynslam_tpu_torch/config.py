@@ -42,6 +42,9 @@ class Intrinsics:
     def as_tuple(self) -> Tuple[float, float, float, float]:
         return (self.fx, self.fy, self.cx, self.cy)
 
+    def scaled(self, s: float) -> "Intrinsics":
+        return Intrinsics(self.fx * s, self.fy * s, self.cx * s, self.cy * s)
+
 
 @dataclass(frozen=True)
 class SceneParams:
@@ -183,13 +186,14 @@ class EvaluationParams:
 
 @dataclass(frozen=True)
 class DynSlamConfig:
-    """The top-level fields the static and dynamic slices and their
-    evaluation read."""
+    """The top-level configuration (the gflags surface,
+    DynSLAMGUI.cpp:26-72)."""
 
     frame_width: int = 1242
     frame_height: int = 375
     calibration: StereoCalibration = field(default_factory=StereoCalibration)
     intrinsics: Intrinsics = field(default_factory=Intrinsics)
+    right_intrinsics: Intrinsics = field(default_factory=Intrinsics)
     scene: SceneParams = field(default_factory=SceneParams)
     decay: VoxelDecayParams = field(default_factory=VoxelDecayParams)
     map: MapParams = field(default_factory=MapParams)
@@ -205,12 +209,53 @@ class DynSlamConfig:
     #: fuse/segment only every k-th frame (DynSlam.h:308-318); the fused
     #: steps fuse every frame, the evaluation's CSV names record it
     fusion_every: int = 1
+    #: the staged path's odometry: scene-flow VO (True) or ICP against the
+    #: map render, with VO as its fallback (False) (DynSlam.cpp:89-100)
+    external_odometry: bool = True
+    #: 5-pass bilateral filter of the input depth before fusion
+    use_bilateral_filter: bool = False
     #: depth provider clamps: 0 = invalid
     min_depth_m: float = 0.5
     max_depth_m: float = 20.0
+    #: read DispNet disparity dumps instead of ELAS depth dumps
+    use_dispnet: bool = False
+    #: image downscale factor (the ``--scale`` flag)
+    scale: float = 1.0
     #: per-object direct (photometric) motion refinement, a staged-path
     #: option; the evaluation's CSV names record it
     use_direct_refinement: bool = False
 
     def replace(self, **kw) -> "DynSlamConfig":
         return dataclasses.replace(self, **kw)
+
+
+def tiny_test_config(width: int = 128, height: int = 96) -> DynSlamConfig:
+    """Small configuration for CPU tests: tiny frames and pools, scaled
+    intrinsics."""
+    intr = Intrinsics(fx=100.0, fy=100.0, cx=width / 2.0, cy=height / 2.0)
+    return DynSlamConfig(
+        frame_width=width,
+        frame_height=height,
+        calibration=StereoCalibration(baseline_m=0.5, focal_length_px=100.0),
+        intrinsics=intr,
+        right_intrinsics=intr,
+        scene=SceneParams(voxel_size_m=0.05, mu_m=0.3, view_frustum_max_m=20.0),
+        map=MapParams(
+            pool_capacity=4096,
+            local_dims=(48, 32, 48),
+            max_new_blocks_per_frame=2048,
+        ),
+        instance_map=InstanceMapParams(
+            max_objects=4,
+            blocks_per_object=256,
+            local_dims=(16, 12, 20),
+            max_new_blocks_per_frame=256,
+        ),
+        vo=VisualOdometryParams(
+            max_matches=512,
+            max_candidates=1024,
+            ransac_iters=100,
+            max_disparity=48,
+        ),
+        stereo=StereoMatcherParams(max_disparity=32),
+    )

@@ -38,8 +38,8 @@ from dynslam_tpu_torch.device import (
 )
 from dynslam_tpu_torch.eval.csv_writer import CsvWriter
 from dynslam_tpu_torch.eval.records import (
-    DepthEvaluation, DepthFrameEvaluation, DepthResult, TrackerFrameEntry,
-    base_csv_name,
+    DepthEvaluation, DepthFrameEvaluation, DepthResult, MemoryUsageEntry,
+    TrackerFrameEntry, base_csv_name,
 )
 from dynslam_tpu_torch.io.velodyne import VelodyneIO
 
@@ -199,7 +199,9 @@ def build_association_map(
 
 class Evaluation:
     """Per-frame evaluation and CSV logging (the reference's L6 harness):
-    the five CSV files under ``base_csv_name``'s config-encoding names."""
+    the five CSV files under ``base_csv_name``'s config-encoding names.
+    The staged pipeline calls ``evaluate_frame`` and ``log_memory_use``
+    each frame; the fused pipelines go through ``FusedEvaluation``."""
 
     def __init__(self, dataset_root: str, input_config, input_, calib,
                  config, csv_out_dir: str = "csv",
@@ -251,6 +253,50 @@ class Evaluation:
         self._consts = upload(np.asarray(
             [np.float32(self.baseline_m * self.focal_px),
              config.min_depth_m, config.max_depth_m], np.float32), dev)
+
+    def evaluate_frame(self, input_, dyn_slam) -> None:
+        """EvaluateFrame (Evaluation.cpp:34-147) of the staged pipeline:
+        the frame ``evaluation_delay`` frames back (0 = the current one),
+        rendered (objects composited in) at that frame's pose, against its
+        input depth — re-read from the sequence for a past frame — and
+        routed with the LATEST segmentation and tracks, as the reference
+        does (GetLatestSeg, Evaluation.cpp:111-127)."""
+        if not self.params.enabled:
+            return
+        delay = self.params.evaluation_delay
+        eval_frame = dyn_slam.current_frame_no - delay
+        if eval_frame < 0:
+            return
+        input_frame_idx = input_.frame_offset + eval_frame
+        if not self.velodyne.frame_available(input_frame_idx):
+            return  # frames without LIDAR are skipped (Evaluation.cpp:54-59)
+        lidar = self.velodyne.read_frame(input_frame_idx)
+        # the evaluated frame's pose is pose_history[k + 1] (index 0 is the
+        # identity prior, Evaluation.cpp:93)
+        cam_to_world = np.linalg.inv(dyn_slam.pose_history[eval_frame + 1])
+        rendered = dyn_slam.get_static_map_raycast_depth_preview(
+            cam_to_world=cam_to_world, compositing=True)
+        if delay == 0:
+            _, input_depth_mm = input_.get_images()
+        else:
+            _, input_depth_mm = input_.get_frame_images(input_frame_idx)
+        rec = dyn_slam.instance_reconstructor
+        assoc = build_association_map(
+            self.config.frame_height, self.config.frame_width,
+            dyn_slam.get_latest_seg_result(),
+            rec.tracker if rec is not None else None)
+        counts = self.evaluate_depth(
+            lidar, rendered, input_depth_mm.astype(np.float32) / 1000.0,
+            assoc)
+        self.write_frame_rows(eval_frame, input_.get_dataset_identifier(),
+                              counts)
+
+    def log_memory_use(self, dyn_slam) -> None:
+        """The per-frame memory row (Evaluation.h:234-243)."""
+        scene = dyn_slam.static_scene
+        self.csv_memory.write(MemoryUsageEntry(
+            dyn_slam.current_frame_no, scene.get_used_memory_bytes(),
+            scene.get_saved_decay_memory_bytes(), self.config.decay))
 
     def write_frame_rows(self, eval_frame: int, dataset_id: str,
                          counts: np.ndarray

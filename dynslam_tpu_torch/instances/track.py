@@ -15,9 +15,10 @@ Mirrors `src/DynSLAM/InstRecLib/Track.{h,cpp}` semantics:
   (Track.h:222-229)
 
 The object motion arrives precomputed (``TrackFrame.precomputed_motion``,
-set by the fused dynamic step's per-mask RANSAC on the device). The JAX
-package's host estimator branch belongs to the staged path, which is not
-ported: reaching it raises.
+set by the fused dynamic step's per-mask RANSAC on the device) or, on the
+staged path, from the scene-flow provider's ``extract_motion`` on the
+frame's masked flow, warm-started from the previous frame's twist, with at
+least ``min_flow_vectors`` vectors (Track.cpp:167-209).
 
 Pose conventions: `relative_pose` is the estimator's T_cur<-prev for the
 object's flow, chained as chain_k = rel_k @ chain_{k-1}. The object
@@ -32,9 +33,11 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from dynslam_tpu_torch.config import TrackerParams
 from dynslam_tpu_torch.io.segmentation import InstanceDetection
+from dynslam_tpu_torch.utils.se3 import twist_to_transform
 
 
 class TrackState(enum.Enum):
@@ -51,6 +54,10 @@ class TrackFrame:
     masked_flow: np.ndarray
     #: world-to-camera pose of the frame (pipeline pose chain entry)
     camera_pose: np.ndarray
+    #: device views of the cut-out object (set at silhouette processing,
+    #: staged path)
+    instance_rgb: object = None
+    instance_depth_m: object = None
     #: object motion: T_cur<-prev (None = unknown)
     relative_pose: Optional[np.ndarray] = None
     relative_pose_tr: Optional[np.ndarray] = None
@@ -70,7 +77,7 @@ class Track:
         self.id = track_id
         self.params = params
         self.frames: List[TrackFrame] = []
-        self.reconstruction = None  # a pooled volume slot or None
+        self.reconstruction = None  # a pooled volume, an engine or None
         self.state = TrackState.UNCERTAIN
         self.needs_cleanup = False
         self.fused_frames = 0
@@ -120,29 +127,47 @@ class Track:
         return score
 
     # -- motion + state machine (Track.cpp:167-343) -----------------------
-    def _estimate_instance_motion(self, frame: TrackFrame):
-        if frame.precomputed_motion is None:
-            raise NotImplementedError(
-                "Track.update: no precomputed_motion on the frame; the host "
-                "motion estimator belongs to the staged path, which "
-                "dynslam_tpu_torch does not have yet")
-        return frame.precomputed_motion
+    def _estimate_instance_motion(self, sf_provider, initial_estimate,
+                                  frame: TrackFrame):
+        """(T 4x4 float64, twist) of the frame's object motion, or (None,
+        None): the precomputed motion when the frame has one, else the
+        staged path's estimate from its masked flow."""
+        if frame.precomputed_motion is not None:
+            return frame.precomputed_motion
+        if sf_provider is None:
+            raise ValueError("Track.update: a frame without precomputed "
+                             "motion needs a scene-flow provider")
+        flow = frame.masked_flow
+        if len(flow) < self.params.min_flow_vectors:
+            return None, None
+        tr = sf_provider.extract_motion(
+            flow, initial_estimate,
+            irls_rounds=self.params.object_irls_rounds,
+            gn_iters=self.params.object_gn_iters)
+        if tr is None:
+            return None, None
+        # float32, as the JAX package's se3.twist_to_transform, widened
+        T = twist_to_transform(torch.tensor(tr, dtype=torch.float32))
+        return T.double().numpy(), tr
 
     def update(self, egomotion: np.ndarray, sf_provider=None,
                frame: "Optional[TrackFrame]" = None) -> None:
-        """Take this frame's object motion and advance the state machine.
-        `egomotion` is the camera delta T_cur<-prev. `frame` targets a
-        specific TrackFrame (default: the latest) — the fused lag-2
-        protocol finishes a frame after a newer one is already associated.
-        `sf_provider` is the staged path's estimator and must be None."""
-        if sf_provider is not None:
-            raise NotImplementedError(
-                "Track.update: the staged path's scene-flow provider is not "
-                "ported")
+        """Estimate or take this frame's object motion and advance the
+        state machine. `egomotion` is the camera delta T_cur<-prev. `frame`
+        targets a specific TrackFrame (default: the latest) — the fused
+        lag-2 protocol finishes a frame after a newer one is already
+        associated. `sf_provider` (the staged path's ``SparseSFProvider``)
+        estimates the motion of a frame without a precomputed one."""
         frame = frame if frame is not None else self.last_frame
         current_frame_idx = frame.frame_idx
 
-        delta, delta_tr = self._estimate_instance_motion(frame)
+        # warm start from the previous frame's twist (Track.cpp:216-232)
+        initial = None
+        if len(self.frames) >= 2 and \
+                self.frames[-2].relative_pose_tr is not None:
+            initial = self.frames[-2].relative_pose_tr
+        delta, delta_tr = self._estimate_instance_motion(sf_provider, initial,
+                                                         frame)
         if delta is not None:
             frame.relative_pose = delta
             frame.relative_pose_tr = delta_tr
@@ -218,6 +243,20 @@ class Track:
                 pose = np.eye(4)
         return pose
 
+    def get_frame_camera_pose(self, frame_idx: int):
+        """(camera world-to-camera pose of frames[frame_idx], its chain):
+        the volume's world transform is C2W_k @ chain_k."""
+        return self.frames[frame_idx].camera_pose, \
+            self.get_frame_pose(frame_idx)
+
+    def get_first_fusable_frame_index(self) -> int:
+        """Index right before the first frame with a known relative pose,
+        -1 if none (Track.h:203-216)."""
+        for i, f in enumerate(self.frames):
+            if f.relative_pose is not None:
+                return max(0, i - 1)
+        return -1
+
     # -- reconstruction bookkeeping ---------------------------------------
     def count_fused_frame(self) -> None:
         self.fused_frames += 1
@@ -229,8 +268,9 @@ class Track:
             self.reconstruction.reap(float(reap_weight))
 
     def release_reconstruction(self) -> None:
-        if self.reconstruction is not None:
-            self.reconstruction.release()  # return the pool slot
+        # a pool slot goes back to its pool; a standalone engine has none
+        if hasattr(self.reconstruction, "release"):
+            self.reconstruction.release()
         self.reconstruction = None
 
     def __repr__(self):

@@ -9,16 +9,22 @@ written out — half-pixel centres, 11-bit fixed-point tap weights, the
 horizontal pass in integers, the vertical pass as
 ``((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2 >> 2``.
 ``tests/test_torch_segmentation.py`` holds it to ``cv2.resize`` byte for
-byte. The dump reader (``PrecomputedSegmentationProvider``) is not here.
+byte. ``PrecomputedSegmentationProvider`` reads the MNC dumps (numpy-text
+masks; a bbox rescaled to the working resolution takes OpenCV's nearest
+resize from ``io/images.py``), and ``write_mnc_dump`` writes them.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+import os
+import time
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
+
+from dynslam_tpu_torch.io.images import read_png, resize_nearest, write_png
 
 PASCAL_VOC_2012_CLASSES = [
     "INVALID",  # VOC 2012 class IDs are 1-based
@@ -189,6 +195,24 @@ class InstanceDetection:
         )
 
 
+@dataclass
+class InstanceSegmentationResult:
+    """One frame's detections (InstanceSegmentationResult.h:74-101)."""
+
+    instance_detections: List[InstanceDetection] = field(default_factory=list)
+    inference_time_ns: int = 0
+
+
+class SegmentationProvider:
+    """Segmentation source (SegmentationProvider.h:21)."""
+
+    def segment_frame(self, rgb: np.ndarray) -> InstanceSegmentationResult:
+        raise NotImplementedError
+
+    def get_seg_preview(self) -> Optional[np.ndarray]:
+        return None
+
+
 def build_masks(
     bbox: BoundingBox,
     mask_data: np.ndarray,
@@ -236,3 +260,98 @@ def detections_from_instance_ids(
                                  min_size_px ** 2)
         dets.append(InstanceDetection(score, class_id, cm, dm, km))
     return dets
+
+
+class PrecomputedSegmentationProvider(SegmentationProvider):
+    """Reads MNC dumps from disk (PrecomputedSegmentationProvider.
+    {h,cpp})."""
+
+    def __init__(self, seg_folder: str, frame_offset: int = 0,
+                 input_scale: float = 1.0, min_detection_size_px: int = 45):
+        self.seg_folder = seg_folder
+        self.frame_idx = frame_offset
+        self.input_scale = input_scale
+        self.min_detection_size_px = min_detection_size_px
+        self._last_preview: Optional[np.ndarray] = None
+
+    @staticmethod
+    def _read_mask(path: str, width: int, height: int) -> np.ndarray:
+        """A numpy-text binary mask, exactly bbox-sized
+        (PrecomputedSegmentationProvider.cpp:37-72)."""
+        data = np.loadtxt(path, dtype=np.float64, ndmin=2).astype(np.uint8)
+        if data.shape != (height, width):
+            raise ValueError(f"mask {path!r} has shape {data.shape}, "
+                             f"expected {(height, width)}")
+        return data
+
+    def read_instance_info(self, base_img_fpath: str
+                           ) -> List[InstanceDetection]:
+        """ReadInstanceInfo (PrecomputedSegmentationProvider.cpp:74-159)."""
+        min_area = int(round(self.min_detection_size_px ** 2
+                             * self.input_scale))
+        detections: List[InstanceDetection] = []
+        instance_idx = 0
+        while True:
+            result_path = f"{base_img_fpath}.{instance_idx:04d}.result.txt"
+            mask_path = f"{base_img_fpath}.{instance_idx:04d}.mask.txt"
+            if not (os.path.exists(result_path)
+                    and os.path.exists(mask_path)):
+                break
+            with open(result_path) as f:
+                line = f.readline().strip()
+            # format: "[x1 y1 x2 y2 junk], probability, class"
+            bracket, rest = line.split("]", 1)
+            nums = bracket.strip("[").split()
+            x0, y0, x1, y1 = (int(float(v)) for v in nums[:4])
+            prob_str, class_str = (p.strip() for p in
+                                   rest.strip(", ").split(",")[:2])
+            bbox = BoundingBox(x0, y0, x1, y1)
+            if bbox.area > min_area:
+                mask_data = self._read_mask(mask_path, bbox.width,
+                                            bbox.height)
+                # the bbox at the working resolution
+                sc = self.input_scale
+                bbox = BoundingBox(int(round(x0 / sc)), int(round(y0 / sc)),
+                                   int(round(x1 / sc)), int(round(y1 / sc)))
+                if (bbox.height, bbox.width) != mask_data.shape:
+                    mask_data = resize_nearest(mask_data,
+                                               (bbox.width, bbox.height))
+                cm, dm, km = build_masks(bbox, mask_data, min_area)
+                detections.append(InstanceDetection(
+                    float(prob_str), int(class_str), cm, dm, km))
+            instance_idx += 1
+        return detections
+
+    def segment_frame(self, rgb: np.ndarray) -> InstanceSegmentationResult:
+        t0 = time.perf_counter_ns()
+        base = os.path.join(self.seg_folder, f"{self.frame_idx:06d}.png")
+        detections = self.read_instance_info(base)
+        preview_path = os.path.join(self.seg_folder,
+                                    f"cls_{self.frame_idx:06d}.png")
+        if os.path.exists(preview_path):
+            self._last_preview = read_png(preview_path)
+        self.frame_idx += 1
+        return InstanceSegmentationResult(
+            instance_detections=detections,
+            inference_time_ns=time.perf_counter_ns() - t0)
+
+    def get_seg_preview(self) -> Optional[np.ndarray]:
+        return self._last_preview
+
+
+def write_mnc_dump(seg_folder: str, frame_idx: int, detections: List[tuple],
+                   preview: Optional[np.ndarray] = None) -> None:
+    """Write detections in the MNC dump format; each detection is (bbox:
+    BoundingBox, prob, class_id, mask_data). ``preview`` (H, W, 3) RGB
+    goes to ``cls_<frame>.png``."""
+    os.makedirs(seg_folder, exist_ok=True)
+    base = os.path.join(seg_folder, f"{frame_idx:06d}.png")
+    for i, (bbox, prob, class_id, mask_data) in enumerate(detections):
+        with open(f"{base}.{i:04d}.result.txt", "w") as f:
+            f.write(f"[{bbox.x0} {bbox.y0} {bbox.x1} {bbox.y1} 0], "
+                    f"{prob:.6f}, {class_id}\n")
+        np.savetxt(f"{base}.{i:04d}.mask.txt",
+                   np.asarray(mask_data, dtype=np.uint8), fmt="%d")
+    if preview is not None:
+        write_png(os.path.join(seg_folder, f"cls_{frame_idx:06d}.png"),
+                  np.asarray(preview, np.uint8))

@@ -3,11 +3,12 @@
 A numpy-only copy of the render path of ``dynslam_tpu/io/synthetic.py``
 (``Box``, ``SyntheticScene``, ``_texture``, ``_ray_scene_intersect``,
 ``render_frame``, ``render_stereo_frame``, ``straight_trajectory``,
-``to_uint8_rgb``) and of the LIDAR ground truth (``make_calibration``,
-``make_velodyne_points``). The JAX package's module imports its KITTI writers,
-which pull in JAX through ``dynslam_tpu.io``; this copy imports nothing
-of the JAX package, so the port renders scenes on a machine without
-JAX. ``tests/test_torch_synthetic.py`` pins its images to the JAX
+``to_uint8_rgb``), of the LIDAR ground truth (``make_calibration``,
+``make_velodyne_points``) and of the KITTI-layout writer
+(``write_kitti_sequence``, with ``write_kitti_frame`` for frames rendered
+elsewhere), which writes through the port's own PNG, XML and PFM writers.
+This copy imports nothing of the JAX package, so the port renders and
+writes scenes on a machine without JAX or OpenCV. ``tests/test_torch_synthetic.py`` pins its images to the JAX
 package's copy byte for byte.
 
 Camera convention: KITTI camera frame (x right, y down, z forward);
@@ -383,3 +384,131 @@ def make_velodyne_points(
         idx = np.linspace(0, len(pts_velo) - 1, max_points).astype(int)
         pts_velo = pts_velo[idx]
     return pts_velo.astype(np.float32)
+
+
+def write_kitti_frame(root: str, frame: int, left_rgb: np.ndarray,
+                      right_rgb: np.ndarray, depth_m: np.ndarray,
+                      object_masks=None, disparity=None,
+                      velodyne_points=None,
+                      write_elas_xml: bool = True) -> None:
+    """One frame of a KITTI-odometry folder under ``root``: the colour
+    pair (``image_2``/``image_3`` PNGs), the ELAS depth dump
+    (``precomputed-depth/Frames``, mm clamped to 0.5-20 m), DispNet
+    disparity (``.pfm``) and LIDAR when given, and, when
+    ``object_masks`` is a list (full-frame bool masks of the dynamic
+    objects), the MNC dump of those with at least 16 pixels (score 0.98,
+    VOC class 7 "car")."""
+    import os
+
+    from dynslam_tpu_torch.io import velodyne
+    from dynslam_tpu_torch.io.images import write_opencv_xml, write_png
+    from dynslam_tpu_torch.io.segmentation import BoundingBox, write_mnc_dump
+    from dynslam_tpu_torch.utils.pfm import write_pfm
+
+    write_png(os.path.join(root, "image_2", f"{frame:06d}.png"), left_rgb)
+    write_png(os.path.join(root, "image_3", f"{frame:06d}.png"), right_rgb)
+    if write_elas_xml:
+        depth_mm = np.clip(depth_m * 1000.0, 0, 32767)
+        depth_mm = np.where((depth_m >= 0.5) & (depth_m <= 20.0), depth_mm,
+                            0).astype(np.int16)
+        write_opencv_xml(os.path.join(root, "precomputed-depth/Frames",
+                                      f"{frame:04d}.xml"), "depth", depth_mm)
+    if disparity is not None:
+        write_pfm(os.path.join(root, "precomputed-depth-dispnet",
+                               f"{frame:06d}.pfm"), disparity)
+    if velodyne_points is not None:
+        velodyne.write_frame(os.path.join(root, "velodyne",
+                                          f"{frame:06d}.bin"),
+                             velodyne_points)
+    if object_masks is not None:
+        dets = []
+        for mask in object_masks:
+            if mask.sum() < 16:
+                continue
+            ys, xs = np.nonzero(mask)
+            bbox = BoundingBox(int(xs.min()), int(ys.min()), int(xs.max()),
+                               int(ys.max()))
+            sub = mask[bbox.y0: bbox.y1 + 1, bbox.x0: bbox.x1 + 1]
+            dets.append((bbox, 0.98, 7, sub.astype(np.uint8)))
+        write_mnc_dump(os.path.join(root, "seg_image_2/mnc"), frame, dets)
+
+
+def write_kitti_sequence(
+    root: str,
+    num_frames: int = 10,
+    width: int = 128,
+    height: int = 96,
+    intrinsics=None,
+    calib=None,
+    with_dynamic: bool = False,
+    n_dynamic: int = 1,
+    write_velodyne: bool = True,
+    write_dispnet: bool = False,
+    write_elas_xml: bool = True,
+    seed: int = 0,
+    scene_kwargs=None,
+    trajectory_kwargs=None,
+) -> SyntheticScene:
+    """Render a synthetic sequence into the KITTI-odometry layout under
+    ``root`` (folders per Input.h:61-86), as the JAX package's
+    ``write_kitti_sequence`` does, with the port's own PNG, XML and PFM
+    writers. Returns the scene for ground-truth checks."""
+    import os
+
+    from dynslam_tpu_torch.io.calib import (
+        write_kitti_calibration, write_kitti_poses,
+    )
+
+    if intrinsics is None:
+        intrinsics = Intrinsics(fx=0.8 * width, fy=0.8 * width,
+                                cx=width / 2.0, cy=height / 2.0)
+    if calib is None:
+        calib = StereoCalibration(baseline_m=0.5,
+                                  focal_length_px=intrinsics.fx)
+    scene = SyntheticScene.default_scene(with_dynamic=with_dynamic, seed=seed,
+                                         n_dynamic=n_dynamic,
+                                         **(scene_kwargs or {}))
+    poses = straight_trajectory(num_frames, **(trajectory_kwargs or {}))
+    kcal = make_calibration(intrinsics, calib)
+    for sub in ("image_2", "image_3", "velodyne", "precomputed-depth/Frames",
+                "precomputed-depth-dispnet", "seg_image_2/mnc"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    write_kitti_calibration(os.path.join(root, "calib.txt"), kcal)
+    write_kitti_poses(os.path.join(root, "ground-truth-poses.txt"), poses)
+    tracklet_path = os.path.join(root, "tracklets.txt")
+    if os.path.exists(tracklet_path):
+        os.remove(tracklet_path)
+
+    for f in range(num_frames):
+        fr = render_stereo_frame(scene, poses[f], intrinsics, calib, width,
+                                 height, frame=f)
+        dyn = [i for i, box in enumerate(scene.boxes) if box.is_dynamic]
+        masks = [fr["object_id"] == i + 1 for i in dyn]
+        write_kitti_frame(
+            root, f, to_uint8_rgb(fr["left_gray"]),
+            to_uint8_rgb(fr["right_gray"]), fr["depth_m"],
+            object_masks=masks if (with_dynamic or any(
+                m.sum() >= 16 for m in masks)) else None,
+            disparity=fr["disparity"] if write_dispnet else None,
+            velodyne_points=make_velodyne_points(
+                fr["depth_m"], intrinsics, kcal.velo_to_left_cam)
+            if write_velodyne else None,
+            write_elas_xml=write_elas_xml)
+        # KITTI tracking-format labels of the dynamic objects
+        w2c = np.linalg.inv(poses[f])
+        lines = []
+        for i, m in zip(dyn, masks):
+            if m.sum() < 16:
+                continue
+            ys, xs = np.nonzero(m)
+            box = scene.boxes[i]
+            loc = w2c[:3, :3] @ box.pose_at(f)[:3, 3] + w2c[:3, 3]
+            he = box.half_extents
+            lines.append(
+                f"{f} {i} Car 0 0 0.0 {xs.min()} {ys.min()} {xs.max()} "
+                f"{ys.max()} {2 * he[1]:.3f} {2 * he[0]:.3f} "
+                f"{2 * he[2]:.3f} {loc[0]:.4f} {loc[1]:.4f} {loc[2]:.4f} 0.0")
+        if lines:
+            with open(tracklet_path, "a") as tf:
+                tf.write("\n".join(lines) + "\n")
+    return scene

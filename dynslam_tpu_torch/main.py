@@ -1,0 +1,378 @@
+"""Command-line entry point — the port of ``dynslam_tpu/main.py`` (the
+reference's ``DynSLAMGUI.cpp main()``, lines 1288-1315, with its gflags,
+lines 26-72, as argparse flags of the same names), headless: previews,
+CSVs, the trajectory and checkpoints go to an output folder.
+
+Usage::
+
+    python -m dynslam_tpu_torch.main --dataset_root /data/kitti/odometry/06 \\
+        --enable_evaluation --out /tmp/run06
+    python -m dynslam_tpu_torch.main --dataset_root DIR --cpu --tiny
+
+The pipelines run on the GPU; ``--cpu`` runs the kernels' plain PyTorch
+versions on the CPU instead. Without ``--fused`` the staged pipeline runs
+(``pipeline/builder.py::build_dynslam``); with it the fused steps.
+``--direct_refinement``, ``--save_mesh``, ``--save_object_meshes`` and
+``--prefetch`` wait for later slices and fail with the slice's name; the
+LIDAR error overlay of ``--dump_previews_every`` is skipped with one line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+import numpy as np
+
+#: flags of later slices: the ROADMAP item that brings each
+DEFERRED = {
+    "direct_refinement": "ops/direct_align.py (ROADMAP.md Queue 1 item 10)",
+    "save_mesh": "viz/meshing.py (ROADMAP.md Queue 1 item 10)",
+    "save_object_meshes": "viz/meshing.py (ROADMAP.md Queue 1 item 10)",
+    "prefetch": "io/prefetch.py (ROADMAP.md Queue 1 item 10)",
+}
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    # dataset flags (DynSLAMGUI.cpp:26-34)
+    p.add_argument("--dataset_root", required=True,
+                   help="KITTI-layout sequence root")
+    p.add_argument("--dataset_type",
+                   choices=["kitti-odometry", "kitti-tracking"],
+                   default="kitti-odometry")
+    p.add_argument("--kitti_tracking_sequence_id", type=int, default=-1)
+    p.add_argument("--frame_offset", type=int, default=0)
+    p.add_argument("--frame_limit", type=int, default=0,
+                   help="stop after this many frames (0 = all)")
+    # pipeline flags (DynSLAMGUI.cpp:29-55)
+    p.add_argument("--dynamic_mode", action="store_true", default=True)
+    p.add_argument("--no-dynamic_mode", dest="dynamic_mode",
+                   action="store_false")
+    p.add_argument("--direct_refinement", action="store_true", default=False,
+                   help="dense photometric refinement of object motion "
+                        "(not ported yet: fails)")
+    p.add_argument("--use_bilateral_filter", action="store_true",
+                   default=False,
+                   help="bilateral-filter the input depth before fusion")
+    p.add_argument("--use_dispnet", action="store_true", default=False)
+    p.add_argument("--fill_disparity_gaps", type=int, default=0,
+                   help="live-stereo gap interpolation: fill horizontal "
+                        "invalid runs up to N px (0 = off)")
+    p.add_argument("--use_live_stereo", action="store_true", default=False,
+                   help="census matcher depth instead of precomputed dumps")
+    p.add_argument("--voxel_decay", action="store_true", default=True)
+    p.add_argument("--no-voxel_decay", dest="voxel_decay",
+                   action="store_false")
+    p.add_argument("--min_decay_age", type=int, default=200)
+    p.add_argument("--max_decay_weight", type=int, default=1)
+    p.add_argument("--use_depth_weighting", action="store_true",
+                   default=False)
+    p.add_argument("--fusion_every", type=int, default=1)
+    p.add_argument("--scale", type=float, default=1.0)
+    p.add_argument("--voxel_size", type=float, default=0.05)
+    p.add_argument("--max_depth", type=float, default=None,
+                   help="fusion depth cutoff in metres (default 20; the CSV "
+                        "names encode it)")
+    # evaluation flags (DynSLAMGUI.cpp:56-72)
+    p.add_argument("--enable_evaluation", action="store_true", default=False)
+    p.add_argument("--semantic_evaluation", action="store_true", default=True)
+    p.add_argument("--evaluation_delay", type=int, default=0)
+    p.add_argument("--csv_out_dir", default=None)
+    # outputs
+    p.add_argument("--out", default="./dynslam_out")
+    p.add_argument("--dump_previews_every", type=int, default=0,
+                   help="write raycast preview PNGs every k frames")
+    p.add_argument("--save_mesh", action="store_true", default=False,
+                   help="not ported yet: fails")
+    p.add_argument("--save_object_meshes", action="store_true",
+                   default=False, help="not ported yet: fails")
+    p.add_argument("--cpu", action="store_true", default=False,
+                   help="run on the CPU (the kernels' plain versions)")
+    p.add_argument("--tiny", action="store_true", default=False,
+                   help="small pools and feature counts (tests, small "
+                        "inputs)")
+    p.add_argument("--prefetch", action="store_true", default=False,
+                   help="not ported yet: fails")
+    p.add_argument("--min_detection_size", type=int, default=None,
+                   help="min detection side in px (default: the "
+                        "reference's 45)")
+    p.add_argument("--fused", action="store_true", default=False,
+                   help="run the fused frame steps (in-graph census "
+                        "stereo; precomputed depth dumps are ignored); "
+                        "--evaluation_delay > 0 needs the staged path")
+    p.add_argument("--checkpoint_out", default=None,
+                   help="write a map+trajectory checkpoint here at the end")
+    p.add_argument("--resume_from", default=None,
+                   help="resume the static map + trajectory from a "
+                        "checkpoint")
+    p.add_argument("--debug_numerics", action="store_true", default=False,
+                   help="stop at the first frame whose pose is not finite")
+    return p
+
+
+def make_config(args):
+    """The ``DynSlamConfig`` the flags ask for."""
+    from dynslam_tpu_torch.config import (
+        DynSlamConfig, EvaluationParams, InstanceMapParams, MapParams,
+        SceneParams, StereoMatcherParams, VisualOdometryParams,
+        VoxelDecayParams,
+    )
+
+    if args.tiny:
+        base = DynSlamConfig(
+            map=MapParams(pool_capacity=16384, local_dims=(80, 32, 80),
+                          max_new_blocks_per_frame=4096),
+            instance_map=InstanceMapParams(
+                blocks_per_object=1024, local_dims=(48, 24, 64),
+                max_new_blocks_per_frame=512),
+            vo=VisualOdometryParams(max_candidates=1024, max_matches=512,
+                                    ransac_iters=60, max_disparity=64),
+            stereo=StereoMatcherParams(max_disparity=64),
+        )
+    else:
+        base = DynSlamConfig()
+    cfg = base.replace(
+        dynamic_mode=args.dynamic_mode,
+        use_dispnet=args.use_dispnet,
+        fusion_every=args.fusion_every,
+        use_bilateral_filter=args.use_bilateral_filter,
+        scale=args.scale,
+        scene=SceneParams(voxel_size_m=args.voxel_size),
+        decay=VoxelDecayParams(args.voxel_decay, args.min_decay_age,
+                               args.max_decay_weight),
+        evaluation=EvaluationParams(
+            enabled=args.enable_evaluation,
+            semantic_evaluation=args.semantic_evaluation,
+            evaluation_delay=args.evaluation_delay),
+    )
+    cfg = dataclasses.replace(
+        cfg,
+        map=dataclasses.replace(cfg.map,
+                                use_depth_weighting=args.use_depth_weighting),
+        stereo=dataclasses.replace(cfg.stereo,
+                                   fill_gaps=args.fill_disparity_gaps),
+        use_direct_refinement=args.direct_refinement)
+    if args.max_depth is not None:
+        cfg = dataclasses.replace(cfg, max_depth_m=args.max_depth)
+    return cfg
+
+
+def _tracking_sequence(args):
+    return (args.kitti_tracking_sequence_id
+            if args.dataset_type == "kitti-tracking" else None)
+
+
+def _device_memory_line(device) -> str:
+    """The device's allocated and reserved memory (the reference's
+    cudaMemGetInfo readout, DynSLAMGUI.cpp:910-915)."""
+    import torch
+
+    if device.type != "cuda":
+        return "[device memory: not measured on the CPU]"
+    stats = torch.cuda.memory_stats(device)
+    return (f"[device memory: {stats.get('allocated_bytes.all.current', 0) / 2 ** 20:.0f}"
+            f" MB allocated, {stats.get('reserved_bytes.all.current', 0) / 2 ** 20:.0f}"
+            f" MB reserved]")
+
+
+def _check_pose(args, n: int, pose) -> None:
+    if args.debug_numerics and not np.isfinite(pose).all():
+        raise FloatingPointError(f"frame {n}: non-finite pose {pose}")
+
+
+def _write_previews(out: str, n: int, color: np.ndarray,
+                    depth_img: np.ndarray) -> None:
+    from dynslam_tpu_torch.io.images import write_png
+
+    write_png(os.path.join(out, f"frame{n:06d}_color.png"), color)
+    write_png(os.path.join(out, f"frame{n:06d}_depth.png"), depth_img)
+
+
+def run_fused(args, cfg, device) -> int:
+    """--fused: the fused frame steps driven over the sequence."""
+    import torch
+
+    from dynslam_tpu_torch.io.calib import write_kitti_poses
+    from dynslam_tpu_torch.ops import depth as depth_ops
+    from dynslam_tpu_torch.pipeline.builder import build_fused
+
+    pipe, input_, segp = build_fused(
+        args.dataset_root, cfg,
+        kitti_tracking_sequence=_tracking_sequence(args),
+        frame_offset=args.frame_offset,
+        min_detection_size_px=args.min_detection_size,
+        with_evaluation=args.enable_evaluation,
+        csv_out_dir=args.csv_out_dir or os.path.join(args.out, "csv"),
+        device=device)
+    n = 0
+    if args.resume_from:
+        from dynslam_tpu_torch.pipeline.checkpoint import load_fused_checkpoint
+
+        n = load_fused_checkpoint(args.resume_from, pipe)
+        input_.frame_idx = input_.frame_offset + n
+        print(f"[resumed from {args.resume_from} at frame {n}]")
+
+    def gray(rgb):
+        return depth_ops.rgb_to_gray(torch.from_numpy(rgb)).numpy()
+
+    poses, t_steady, n_start = [], None, n
+    while input_.has_more_images():
+        t0 = time.perf_counter()
+        input_.read_next_frame()
+        rgb, _ = input_.get_images()
+        lg, rg = gray(rgb), gray(input_.get_stereo_color()[1])
+        if segp is not None:
+            pipe.process_frame(lg, rg, rgb,
+                               segp.segment_frame(rgb).instance_detections)
+        else:
+            pipe.process_frame(lg, rg, rgb)
+            o = pipe.last_outputs
+            if pipe.evaluation is not None and o is not None:
+                pipe.evaluation.submit(n, o.raycast.depth, o.depth_m, None,
+                                       o.used_blocks, o.decayed_blocks)
+        if pipe.last_outputs is not None:
+            poses.append(pipe.last_outputs.pose_w2c.cpu().numpy())
+            _check_pose(args, n, poses[-1])
+            if args.dump_previews_every and n \
+                    and n % args.dump_previews_every == 0:
+                rc = pipe.last_outputs.raycast
+                color = pipe.composited_preview() if segp is not None \
+                    else rc.color.cpu().numpy()
+                d = rc.depth.cpu().numpy()
+                dv = np.clip(d / max(float(d.max()), 1e-3) * 255, 0, 255)
+                _write_previews(args.out, n, color, dv.astype(np.uint8))
+        print(f"[Dispatched frame {n} in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms]")
+        n += 1
+        if n - n_start == 3:
+            t_steady = time.perf_counter()
+        if args.frame_limit and n - n_start >= args.frame_limit:
+            break
+    if segp is not None:
+        pipe.finalize()
+    if pipe.evaluation is not None:
+        pipe.evaluation.close()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    if t_steady is not None and n - n_start > 3:
+        fps = (n - n_start - 3) / (time.perf_counter() - t_steady)
+        print(f"[steady-state: {fps:.2f} FPS over {n - n_start - 3} frames]")
+    if args.checkpoint_out:
+        from dynslam_tpu_torch.pipeline.checkpoint import save_fused_checkpoint
+
+        save_fused_checkpoint(args.checkpoint_out, pipe)
+        print(f"[checkpoint written to {args.checkpoint_out}]")
+    # frame 0 is the bootstrap (the identity pose), so trajectory rows ==
+    # frames processed
+    est = np.stack([np.eye(4)] + [np.linalg.inv(p) for p in poses]) \
+        if poses else np.eye(4)[None]
+    write_kitti_poses(os.path.join(args.out, "trajectory.txt"), est)
+    if segp is not None:
+        for t in pipe.tracker.active_tracks.values():
+            vol = t.reconstruction.get_used_block_count() \
+                if t.has_reconstruction() else 0
+            print(f"[track #{t.id} {t.class_name} {t.state.value}: "
+                  f"{len(t.frames)} frames, {t.fused_frames} fused, "
+                  f"{vol} blocks]")
+    print(f"[map: {pipe.get_used_block_count()} blocks, "
+          f"{pipe.get_dropped_allocation_count()} dropped allocations]")
+    return 0
+
+
+def run_staged(args, cfg, device) -> int:
+    """The staged pipeline over the sequence."""
+    from dynslam_tpu_torch.io.calib import write_kitti_poses
+    from dynslam_tpu_torch.pipeline.builder import build_dynslam
+    from dynslam_tpu_torch.pipeline.mapping import PreviewType
+
+    dyn, input_ = build_dynslam(
+        args.dataset_root, cfg,
+        kitti_tracking_sequence=_tracking_sequence(args),
+        use_live_stereo=args.use_live_stereo,
+        frame_offset=args.frame_offset,
+        with_instances=args.dynamic_mode,
+        with_evaluation=args.enable_evaluation,
+        csv_out_dir=args.csv_out_dir or os.path.join(args.out, "csv"),
+        min_detection_size_px=args.min_detection_size,
+        device=device)
+    n = 0
+    if args.resume_from:
+        from dynslam_tpu_torch.pipeline.checkpoint import load_checkpoint
+
+        n = load_checkpoint(args.resume_from, dyn)
+        input_.frame_idx = input_.frame_offset + n
+        print(f"[resumed from {args.resume_from} at frame {n}]")
+    n_start, overlay_said = n, False
+    while dyn.process_frame(input_):
+        ms = dyn.last_frame_ms()
+        _check_pose(args, n, dyn.get_current_pose())
+        print(f"[Finished frame {n} in {ms:.1f} ms @ "
+              f"{1000.0 / max(ms, 1e-3):.2f} FPS]")
+        if args.dump_previews_every and n \
+                and n % args.dump_previews_every == 0:
+            _write_previews(
+                args.out, n,
+                dyn.get_static_map_raycast_preview(preview=PreviewType.COLOR),
+                dyn.get_static_map_raycast_preview(preview=PreviewType.DEPTH))
+            if dyn.evaluation is not None and not overlay_said:
+                print("[the LIDAR error overlay (eval/error_viz.py) is not "
+                      "ported yet (ROADMAP.md Queue 1 item 10); colour and "
+                      "depth previews written]")
+                overlay_said = True
+        if n and n % 50 == 0:
+            print(_device_memory_line(device))
+        n += 1
+        if args.frame_limit and n - n_start >= args.frame_limit:
+            break
+    if args.checkpoint_out:
+        from dynslam_tpu_torch.pipeline.checkpoint import save_checkpoint
+
+        save_checkpoint(args.checkpoint_out, dyn)
+        print(f"[checkpoint written to {args.checkpoint_out}]")
+    dyn.finalize()
+    if dyn.evaluation is not None:
+        dyn.evaluation.close()
+    est = np.stack([np.linalg.inv(p) for p in dyn.pose_history[1:]])
+    write_kitti_poses(os.path.join(args.out, "trajectory.txt"), est)
+    if dyn.instance_reconstructor is not None:
+        for t in dyn.instance_reconstructor.tracker.active_tracks.values():
+            vol = t.reconstruction.get_used_block_count() \
+                if t.has_reconstruction() else 0
+            print(f"[track #{t.id} {t.class_name} {t.state.value}: "
+                  f"{len(t.frames)} frames, {t.fused_frames} fused, "
+                  f"{vol} blocks]")
+    print(dyn.get_timing_report())
+    scene = dyn.static_scene
+    print(f"[map: {scene.get_used_block_count()} blocks, "
+          f"{scene.get_used_memory_bytes() / 1e6:.1f} MB; decay saved "
+          f"{scene.get_saved_decay_memory_bytes() / 1e6:.1f} MB; "
+          f"{scene.get_dropped_allocation_count()} dropped allocations]")
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    for flag, where in DEFERRED.items():
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag} needs {where}, which "
+                             "dynslam_tpu_torch does not have yet")
+    from dynslam_tpu_torch.device import resolve_device
+
+    device = resolve_device("cpu" if args.cpu else None)
+    cfg = make_config(args)
+    os.makedirs(args.out, exist_ok=True)
+    if args.fused:
+        if args.enable_evaluation and args.evaluation_delay:
+            raise SystemExit("--fused evaluation supports "
+                             "--evaluation_delay=0 only; use the staged "
+                             "path for delayed evaluation")
+        return run_fused(args, cfg, device)
+    return run_staged(args, cfg, device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,10 +4,15 @@
   semantics (DepthProvider.h:94-137): disparity -> int16 mm depth with
   range clamping, 0 = invalid.
 - ``depth_m_from_mm``: int16 mm -> float32 m.
+- ``disparity_from_depth_m``: float depth -> disparity, 0 where invalid.
+- ``bilateral_filter_depth``: InfiniTAM's 5-pass bilateral filter of the
+  input depth (``UpdateView`` with ``useBilateralFilter``).
 - ``rgb_to_gray``: OpenCV weights, as the reference converts before viso2.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -50,6 +55,42 @@ def depth_m_from_mm(depth_mm: torch.Tensor) -> torch.Tensor:
     by the float32 reciprocal of 1000, as XLA evaluates the JAX
     package's division inside its jitted frame step."""
     return depth_mm.to(torch.float32) * recip32(MM_PER_M)
+
+
+def disparity_from_depth_m(depth_m: torch.Tensor, bf: float) -> torch.Tensor:
+    """float depth (m) -> disparity (px); invalid (<= 0) depth -> 0."""
+    return torch.where(depth_m > 1e-6,
+                       bf / torch.clamp(depth_m, min=1e-6), 0.0)
+
+
+def bilateral_filter_depth(depth_m: torch.Tensor, radius: int = 2,
+                           sigma_space: float = 1.5,
+                           sigma_depth: float = 0.03,
+                           steps: int = 5) -> torch.Tensor:
+    """Edge-preserving smoothing of a float depth map in ``steps``
+    passes of a (2 radius + 1)^2 stencil; invalid (0) pixels neither
+    contribute nor get filled, and the stencil wraps at the borders as
+    the JAX package's ``jnp.roll`` form does."""
+    offsets = [(dy, dx) for dy in range(-radius, radius + 1)
+               for dx in range(-radius, radius + 1)]
+    spatial_w = [math.exp(-(dy * dy + dx * dx) / (2.0 * sigma_space ** 2))
+                 for dy, dx in offsets]
+    inv2s2 = recip32(2.0 * sigma_depth ** 2)
+    d = depth_m
+    for _ in range(steps):
+        valid = d > 0
+        acc = torch.zeros_like(d)
+        wacc = torch.zeros_like(d)
+        for (dy, dx), sw in zip(offsets, spatial_w):
+            shifted = torch.roll(d, (dy, dx), (0, 1))
+            sh_valid = torch.roll(valid, (dy, dx), (0, 1))
+            w = sw * torch.exp(-torch.square(shifted - d) * inv2s2)
+            w = torch.where(sh_valid & valid, w, 0.0)
+            acc = acc + w * shifted
+            wacc = wacc + w
+        out = torch.where(wacc > 1e-8, acc / torch.clamp(wacc, min=1e-8), d)
+        d = torch.where(valid, out, 0.0)
+    return d
 
 
 def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:

@@ -337,7 +337,7 @@ def allocate(
         z = torch.clamp(z, min=0.05)
         pcam = torch.stack([ray_x * z, ray_y * z, z], -1)
         pw = transform_points(cam_to_world, pcam)
-        blk = torch.floor(pw / cfg.block_size).to(torch.int32)
+        blk = torch.floor(pw * recip32(cfg.block_size)).to(torch.int32)
         lin, in_win = grid_linear(cfg, blk - origin)
         lins.append(torch.where(valid_px & in_win, lin, n_cells).reshape(-1))
     wanted = torch.zeros(n_cells + 1, dtype=torch.bool, device=dev)

@@ -36,7 +36,10 @@ def test_evaluation_fields_of_the_top_level():
     """The top-level fields the evaluation reads exist on both sides with
     the same defaults."""
     for name in ("evaluation", "fusion_every", "use_direct_refinement",
-                 "dynamic_mode", "min_depth_m", "max_depth_m"):
+                 "dynamic_mode", "min_depth_m", "max_depth_m",
+                 # the staged path's
+                 "right_intrinsics", "external_odometry",
+                 "use_bilateral_filter", "use_dispnet", "scale"):
         pv = getattr(port_config.DynSlamConfig(), name)
         jv = getattr(jax_config.DynSlamConfig(), name)
         if dataclasses.is_dataclass(pv):
@@ -53,3 +56,12 @@ def test_derived_values_match():
     assert port_config.SceneParams().block_size_m == \
         jax_config.SceneParams().block_size_m
     assert port_config.VOXEL_BLOCK_SIZE == jax_config.VOXEL_BLOCK_SIZE
+
+
+@pytest.mark.parametrize("size", [(128, 96), (160, 120)])
+def test_tiny_test_config_matches(size):
+    port = dataclasses.asdict(port_config.tiny_test_config(*size))
+    jax = dataclasses.asdict(jax_config.tiny_test_config(*size))
+    assert port.items() <= jax.items()
+    assert set(port) == {f.name for f in dataclasses.fields(
+        port_config.DynSlamConfig)}

@@ -1,7 +1,7 @@
 """The port imports torch and never jax: ``import dynslam_tpu_torch`` and
-every module of the static and dynamic slices and of the evaluation
-leave no ``jax*`` module,
-nothing of the JAX package ``dynslam_tpu`` and no ``cv2`` loaded. Checked in a fresh interpreter,
+every module of the static, dynamic and staged slices, of the evaluation
+and of the CLI leave no ``jax*`` module, nothing of the JAX package
+``dynslam_tpu`` and no ``cv2`` loaded. Checked in a fresh interpreter,
 because this test process imports jax (``tests/conftest.py``)."""
 
 import pathlib
@@ -46,6 +46,18 @@ SLICE_MODULES = [
     "dynslam_tpu_torch.eval.csv_writer",
     "dynslam_tpu_torch.eval.evaluation",
     "dynslam_tpu_torch.eval.fused_eval",
+    # the staged slice and the CLI
+    "dynslam_tpu_torch.utils.timers",
+    "dynslam_tpu_torch.utils.pfm",
+    "dynslam_tpu_torch.io.images",
+    "dynslam_tpu_torch.io.depth_providers",
+    "dynslam_tpu_torch.pipeline.mapping",
+    "dynslam_tpu_torch.pipeline.sparse_sf",
+    "dynslam_tpu_torch.pipeline.dynslam",
+    "dynslam_tpu_torch.pipeline.checkpoint",
+    "dynslam_tpu_torch.instances.volume_pool",
+    "dynslam_tpu_torch.instances.reconstructor",
+    "dynslam_tpu_torch.main",
 ]
 
 

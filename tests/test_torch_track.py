@@ -147,9 +147,60 @@ def test_score_match_matches_jax():
 
 
 def test_update_without_motion_refuses():
+    """A frame with neither a precomputed motion nor a scene-flow provider
+    to estimate one."""
     tracker = InstanceTracker(TrackerParams())
     tf = TrackFrame(1, _det(tseg, 10), np.zeros((0, 8)), np.eye(4))
     tracker.process_instance_views(1, [tf])
     (t,) = tracker.active_tracks.values()
-    with pytest.raises(NotImplementedError, match="staged path"):
+    with pytest.raises(ValueError, match="scene-flow provider"):
         t.update(EGO, None, frame=tf)
+
+
+class ScriptedSF:
+    """A scene-flow provider stand-in: ``extract_motion`` returns the next
+    scripted twist (None = failure) and records its calls."""
+
+    def __init__(self, twists):
+        self.twists, self.calls = list(twists), []
+
+    def extract_motion(self, flow, initial, irls_rounds=None, gn_iters=None):
+        self.calls.append((len(flow), None if initial is None
+                           else np.asarray(initial).tolist(), irls_rounds,
+                           gn_iters))
+        tr = self.twists.pop(0)
+        return None if tr is None else np.asarray(tr, np.float32)
+
+
+def test_staged_estimator_matches_jax():
+    """The staged path's ``update(egomotion, sf_provider)``: the masked
+    flow's estimate (warm-started from the previous frame's twist, with the
+    object IRLS/GN depths, skipped under ``min_flow_vectors``) drives the
+    same states and poses as in the JAX package."""
+    twists = [[0.0, 0.01, 0.0, 0.9, 0.0, 0.1], None,
+              [0.0, 0.0, 0.0, 0.01, 0.0, 0.0], [0.0, 0.0, 0.0, 0.7, 0, 0]]
+    flows = [np.zeros((30, 8)), np.zeros((30, 8)), np.zeros((3, 8)),
+             np.zeros((30, 8)), np.zeros((30, 8))]
+    out = []
+    for frame_cls, seg, params, tracker_cls in (
+            (JaxFrame, jseg, JaxParams(), JaxTracker),
+            (TrackFrame, tseg, TrackerParams(), InstanceTracker)):
+        tracker = tracker_cls(params)
+        sf = ScriptedSF(twists)
+        log = []
+        for f, flow in enumerate(flows):
+            tf = frame_cls(f, _det(seg, 10 + 2 * f), flow, np.eye(4))
+            tracker.process_instance_views(f, [tf])
+            (t,) = tracker.active_tracks.values()
+            t.update(EGO, sf)
+            log.append((t.state.value, None if tf.relative_pose is None
+                        else np.round(np.asarray(tf.relative_pose), 5)))
+        out.append((log, sf.calls))
+    (jlog, jcalls), (tlog, tcalls) = out
+    assert tcalls == jcalls
+    for (js, jp), (ts, tp) in zip(jlog, tlog):
+        assert js == ts
+        assert (jp is None) == (tp is None)
+        if jp is not None:
+            np.testing.assert_allclose(tp, jp, atol=1e-5)
+    assert {s for s, _ in tlog} >= {"Dynamic"}
