@@ -104,6 +104,23 @@ and never prints its last line):
     slot at the render pose ``composite_instance_depth_maps`` uses,
     against ``candidate_bits_ref`` and ``raycast_ref``.
 
+16. the CLI's last outputs, on phase 13's folder: (a) phase 13's split
+    run again with ``--prefetch``, whose trajectory and CSVs must equal
+    the split run's byte for byte (prints both runs' ``1-read-input``
+    mean and frame rate); (b) the 12 frames with ``--enable_evaluation
+    --dump_previews_every 4 --save_mesh --save_object_meshes
+    --direct_refinement``: ``static_map.obj`` parses with valid faces and
+    at least ``MIN_STATIC_TRIS`` triangles, an object mesh has triangles,
+    the run prints at least one refined object motion, drift <= 2%, the
+    LIDAR error overlays of frames 4 and 8 have green splats (prints the
+    time direct refinement takes and the green share); (c) ``render_orbit``
+    of the static map (8 frames, each with hits; K2's launches and memsets
+    a render under torch.profiler) and ``render_chase_sequence``; (d) the
+    dense tracer (``MapEngine.get_raycast`` at 621x188) against its run on
+    a CPU copy of the map, with its time and launches; (e) ``extract_mesh``
+    of (b)'s static map and of phase 8's largest slot equal to its run on
+    CPU copies.
+
 Phases 3, 4, 7, 9, 12, 14 and 15 also print each kernel's times: the bare kernel
 (its prepared C call alone, no Python conversion between launches), warm
 (50 back-to-back launches between two CUDA events) and cold (the L2
@@ -127,6 +144,7 @@ one pool of worker processes and cached under ``dynslam_tpu_torch/_build/``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import linecache
@@ -308,6 +326,26 @@ OPS_PER_SAMPLE = 40
 OPS_PER_PIXEL = 40
 OPS_PER_WORD = 4
 OPS_PER_CORNER = 12
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from dynslam_tpu_torch.ops import integrate as K1
+    from dynslam_tpu_torch.ops import raycast as K2
+
+    K1.integrate.launches = 0
+    K2.candidate_bits.launches = 0
+    K2.raycast.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from dynslam_tpu_torch.ops import integrate as K1
+    from dynslam_tpu_torch.ops import raycast as K2
+
+    return dict(integrate=K1.integrate.launches,
+                candidates=K2.candidate_bits.launches,
+                raycast=K2.raycast.launches)
 
 
 def median_ms(fn, reps: int) -> float:
@@ -862,8 +900,6 @@ def run_slice(config, frames, device, census_frame=CENSUS_FRAME,
     import numpy as np
     import torch
 
-    from dynslam_tpu_torch.ops import integrate as K1
-    from dynslam_tpu_torch.ops import raycast as K2
     from dynslam_tpu_torch.pipeline.builder import (
         attach_evaluation, build_fused_static,
     )
@@ -892,9 +928,7 @@ def run_slice(config, frames, device, census_frame=CENSUS_FRAME,
             pipe.evaluation.submit(i, o.raycast.depth, o.depth_m, None,
                                    o.used_blocks, o.decayed_blocks)
 
-    K1.integrate.launches = 0
-    K2.candidate_bits.launches = 0
-    K2.raycast.launches = 0
+    reset_launches()
     recs, census, worker = [], Counter(), Counter()
     for i in range(n):
         t0 = time.perf_counter()
@@ -926,9 +960,7 @@ def run_slice(config, frames, device, census_frame=CENSUS_FRAME,
                      f"{rec['used']}, freed {rec['freed']}, decay "
                      f"{rec['decay']}, hit {rec['hit']:.3f}, pose err "
                      f"{err * 100:.2f} cm, branch syncs {rec['syncs']}")
-    launches = dict(integrate=K1.integrate.launches,
-                    candidates=K2.candidate_bits.launches,
-                    raycast=K2.raycast.launches)
+    launches = launch_counts()
     if pipe.evaluation is not None:
         pipe.evaluation.close()
     return dict(pipe=pipe, recs=recs, launches=launches, census=census,
@@ -976,7 +1008,7 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-STAGE_PREFIXES = ("fused_step.", "fused_dyn.", "fused_eval.")
+STAGE_PREFIXES = ("fused_step.", "fused_dyn.", "fused_eval.", "render.")
 
 
 def summarize_trace(events, n: int) -> dict:
@@ -1114,8 +1146,6 @@ def run_dynamic(config, frames, device, out_dir: Path,
     import numpy as np
     import torch
 
-    from dynslam_tpu_torch.ops import integrate as K1
-    from dynslam_tpu_torch.ops import raycast as K2
     from dynslam_tpu_torch.pipeline import fused_dynamic
     from dynslam_tpu_torch.pipeline.builder import (
         attach_evaluation, build_fused_dynamic,
@@ -1140,9 +1170,7 @@ def run_dynamic(config, frames, device, out_dir: Path,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    K1.integrate.launches = 0
-    K2.candidate_bits.launches = 0
-    K2.raycast.launches = 0
+    reset_launches()
     times, syncs, censuses = {}, {}, {}
 
     def frame(i):
@@ -1178,9 +1206,7 @@ def run_dynamic(config, frames, device, out_dir: Path,
         torch.cuda.synchronize()
     finally:
         fused_dynamic.integrate_many = recorder.fn
-    launches = dict(integrate=K1.integrate.launches,
-                    candidates=K2.candidate_bits.launches,
-                    raycast=K2.raycast.launches)
+    launches = launch_counts()
     poses_gt = frames["poses"].astype(np.float64)
     # pose_history[k + 1] is frame k's pose (index 0 the identity prior)
     errs = [float(np.linalg.norm(
@@ -1767,23 +1793,17 @@ def run_cli(args, census_frame=None) -> StagedProbe:
     import torch
 
     from dynslam_tpu_torch import main as cli
-    from dynslam_tpu_torch.ops import integrate as K1
-    from dynslam_tpu_torch.ops import raycast as K2
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K1.integrate.launches = 0
-    K2.candidate_bits.launches = 0
-    K2.raycast.launches = 0
+    reset_launches()
     with StagedProbe(census_frame) as probe:
         t0 = time.perf_counter()
         rc = cli.main([str(a) for a in args])
         probe.wall_s = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"dynslam_tpu_torch.main exited {rc}")
-    probe.launches = dict(integrate=K1.integrate.launches,
-                          candidates=K2.candidate_bits.launches,
-                          raycast=K2.raycast.launches)
+    probe.launches = launch_counts()
     probe.peak_gb = torch.cuda.max_memory_allocated() / 1e9
     return probe
 
@@ -1943,6 +1963,382 @@ def check_view_raycast(cfg, state, c2w_np, intr, flush, parent, what,
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the CLI's last outputs (prefetching input, meshes, direct
+# refinement, the LIDAR error overlay, the renderer, the dense tracer)
+# ---------------------------------------------------------------------------
+
+#: 16a: the split run's frames whose rate is compared
+PREFETCH_FPS_FRAMES = range(3, STAGED_SPLIT)
+#: 16b: the static mesh's floor (PERF.md's prediction: 0.4-1.5 M)
+MIN_STATIC_TRIS = 100_000
+#: 16c: orbit frames and the chase camera's pose stride
+ORBIT_FRAMES, CHASE_EVERY = 8, 4
+#: 16d: the dense tracer's size (half the frame) and its bounds against
+#: the same function on a CPU copy of the map
+TRACER_W, TRACER_H = W // 2, (H + 1) // 2
+TRACER_MIN_HIT_AGREE, TRACER_MAX_MEDIAN = 0.999, 1e-4
+
+
+class Tee:
+    """Standard output that is also kept in ``text``."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    @property
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+class Timed:
+    """Replaces ``owner.name`` for the ``with`` block: each call is
+    synchronised and timed, and the K2 launches inside it counted."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
+        self.ms, self.pre, self.march = [], 0, 0
+
+    def __enter__(self):
+        import torch
+
+        from dynslam_tpu_torch.ops import raycast as K2
+
+        fn = self.fn = getattr(self.owner, self.name)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            pre, march = K2.candidate_bits.launches, K2.raycast.launches
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.pre += K2.candidate_bits.launches - pre
+            self.march += K2.raycast.launches - march
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def frame_rate(probe, frames) -> float:
+    ms = [probe.frames[i]["ms"] for i in frames]
+    return len(ms) / (sum(ms) / 1e3)
+
+
+def check_prefetch(split, pre, out_split: Path, out_pre: Path) -> dict:
+    """16a: the prefetching run's trajectory and CSVs byte for byte those of
+    phase 13's split run; both runs' read stage and frame rate."""
+    import filecmp
+
+    names = sorted(os.listdir(out_split / "csv"))
+    if not names or names != sorted(os.listdir(out_pre / "csv")):
+        raise AssertionError(f"CSVs {names} / "
+                             f"{sorted(os.listdir(out_pre / 'csv'))}")
+    files = ["trajectory.txt"] + [f"csv/{n}" for n in names]
+    differ = [f for f in files
+              if not filecmp.cmp(out_split / f, out_pre / f, shallow=False)]
+    if differ:
+        raise AssertionError(f"--prefetch changed {differ}")
+    return dict(files=files, read_ms=[
+        p.dyn._timers.mean_ms("1-read-input") for p in (split, pre)],
+        fps=[frame_rate(p, PREFETCH_FPS_FRAMES) for p in (split, pre)])
+
+
+def read_obj(path: Path):
+    """(vertex count, (T, 3) 1-based faces) of an OBJ file."""
+    import numpy as np
+
+    lines = path.read_text().splitlines()
+    n_v = sum(ln.startswith("v ") for ln in lines)
+    faces = np.array(" ".join(ln[2:] for ln in lines if ln.startswith("f "))
+                     .split(), np.int64).reshape(-1, 3)
+    return n_v, faces
+
+
+def check_refine_run(probe, printed: str, refine: Timed, overlay: Timed,
+                     frames, out: Path) -> dict:
+    """16b: the staged CLI with meshes, direct refinement and the LIDAR
+    error overlay: the static mesh parses with valid faces and more than
+    ``MIN_STATIC_TRIS`` triangles, an object mesh has triangles, at least
+    one object motion was refined (and printed), the poses are finite
+    and drift <= 2%, the overlays of frames 4 and 8 have green splats."""
+    import re
+
+    import numpy as np
+
+    from dynslam_tpu_torch.eval.error_viz import ERROR, GOOD
+    from dynslam_tpu_torch.io.calib import read_kitti_poses
+    from dynslam_tpu_torch.io.images import read_png
+
+    n_v, faces = read_obj(out / "static_map.obj")
+    if len(faces) < MIN_STATIC_TRIS or faces.min() < 1 or faces.max() > n_v:
+        raise AssertionError(f"static_map.obj: {len(faces)} faces over "
+                             f"{n_v} vertices, indices {faces.min()}-"
+                             f"{faces.max()}")
+    objs = {p.name: len(read_obj(p)[1]) for p in out.glob("object_*.obj")}
+    if not objs or max(objs.values()) == 0:
+        raise AssertionError(f"object meshes {objs}")
+    rec = probe.dyn.instance_reconstructor
+    said = re.findall(r"\[direct refinement: (\d+) object motions refined\]",
+                      printed)
+    if said != [str(rec.direct_refinements)] or rec.direct_refinements < 1:
+        raise AssertionError(f"direct refinement printed {said}, "
+                             f"{rec.direct_refinements} refined")
+    n = frames["left"].shape[0]
+    traj = read_kitti_poses(str(out / "trajectory.txt"))
+    travelled = SPEED * (n - 1)
+    err = float(np.linalg.norm(traj[-1][:3, 3]
+                               - frames["poses"][n - 1][:3, 3]))
+    if traj.shape[0] != n or not np.isfinite(traj).all() \
+            or not err <= 0.02 * travelled:
+        raise AssertionError(f"trajectory {traj.shape}, final pose error "
+                             f"{err:.3f} m over {travelled:.1f} m")
+    green = {}
+    for f in (STAGED_PREVIEWS, 2 * STAGED_PREVIEWS):
+        img = read_png(str(out / f"frame{f:06d}_lidar_error.png"))
+        g = int((img == GOOD).all(-1).sum())
+        r = int((img == ERROR).all(-1).sum())
+        if img.shape != (H, W, 3) or g == 0:
+            raise AssertionError(f"frame {f}'s overlay: {img.shape}, {g} "
+                                 "green pixels")
+        green[f] = (g, r, g / (g + r))
+    return dict(tris=len(faces), verts=n_v, objs=objs,
+                refined=rec.direct_refinements, refine_ms=refine.ms,
+                overlay_pre=overlay.pre, overlay_march=overlay.march,
+                err=err, travelled=travelled, green=green,
+                fps=frame_rate(probe, DYN_FPS_FRAMES))
+
+
+def check_renderer(dyn, out_dir: Path) -> dict:
+    """16c: ``render_orbit`` of the static map (under torch.profiler, each
+    K2 call in a ``render.k2`` range) and ``render_chase_sequence`` every
+    ``CHASE_EVERY`` poses, the launch counts set to 0 just before and read
+    just after: every PNG written, every orbit frame with hits, one K2
+    pre-pass and march a render, at most ``RAYCAST_STAGE_MAX_LAUNCHES``
+    launches and memsets in K2's range."""
+    from torch.profiler import record_function
+
+    from dynslam_tpu_torch.pipeline import mapping
+    from dynslam_tpu_torch.viz import renderer
+
+    k2, hits, paths = mapping.raycast, [], []
+
+    def traced(*args, **kwargs):
+        with record_function("render.k2"):
+            out = k2(*args, **kwargs)
+        hits.append(out.hit.sum())
+        return out
+
+    reset_launches()
+    mapping.raycast = traced
+    try:
+        prof = profile_frames(
+            lambda: paths.extend(renderer.render_orbit(
+                dyn.static_scene, str(out_dir / "orbit"),
+                n_frames=ORBIT_FRAMES)),
+            ORBIT_FRAMES, out_dir, tag="render-profile",
+            name="profile_trace_orbit.json")
+    finally:
+        mapping.raycast = k2
+    orbit = launch_counts()
+    chase = renderer.render_chase_sequence(dyn, str(out_dir / "chase"),
+                                           every=CHASE_EVERY)
+    launches = launch_counts()
+    _, _, kernels, memsets = prof["stages"]["render.k2"]
+    hits = [int(h) for h in hits]
+    want_chase = len(range(0, len(dyn.pose_history) - 1, CHASE_EVERY))
+    if len(paths) != ORBIT_FRAMES or len(chase) != want_chase \
+            or not all(os.path.exists(p) for p in paths + chase):
+        raise AssertionError(f"{len(paths)} orbit and {len(chase)} chase "
+                             "PNGs")
+    if len(hits) != ORBIT_FRAMES or min(hits) == 0:
+        raise AssertionError(f"orbit hits {hits}")
+    if orbit != dict(integrate=0, candidates=ORBIT_FRAMES,
+                     raycast=ORBIT_FRAMES) \
+            or kernels + memsets > RAYCAST_STAGE_MAX_LAUNCHES:
+        raise AssertionError(f"orbit K2 launches {orbit}, {kernels:.0f} "
+                             f"kernels and {memsets:.0f} memsets a render")
+    return dict(hits=hits, chase=len(chase), orbit=orbit, launches=launches,
+                kernels=kernels, memsets=memsets,
+                renders=ORBIT_FRAMES + len(chase))
+
+
+def cpu_state(state):
+    from dynslam_tpu_torch.ops import tsdf
+
+    return tsdf.TsdfState(*(getattr(state, f.name).cpu()
+                            for f in dataclasses.fields(state)))
+
+
+def check_tracer(eng, out_dir: Path) -> dict:
+    """16d: ``MapEngine.get_raycast`` at ``TRACER_W`` x ``TRACER_H`` (the
+    dense tracer) from the current pose on the card against the same call
+    on a CPU copy of the map; its time (CUDA events, median of 5) and its
+    launches (one call under torch.profiler)."""
+    import numpy as np
+
+    from dynslam_tpu_torch.pipeline.mapping import MapEngine
+
+    pose = eng.cam_to_world
+
+    def render():
+        return eng.get_raycast(pose, TRACER_W, TRACER_H)
+
+    got = render()
+    ref_eng = MapEngine(eng.cfg, eng.decay_params, device="cpu")
+    ref_eng.state = cpu_state(eng.state)
+    ref_eng.intrinsics_vec = eng.intrinsics_vec.cpu()
+    t0 = time.perf_counter()
+    ref = ref_eng.get_raycast(pose, TRACER_W, TRACER_H)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    hg, hr = got.hit.cpu().numpy(), ref.hit.numpy()
+    both = hg & hr
+    gap = np.abs(got.depth.cpu().numpy() - ref.depth.numpy())[both]
+    agree = float((hg == hr).mean())
+    median = float(np.median(gap)) if gap.size else float("inf")
+    if hg.shape != (TRACER_H, TRACER_W) or both.sum() < 1000 \
+            or agree < TRACER_MIN_HIT_AGREE or median > TRACER_MAX_MEDIAN:
+        raise AssertionError(f"dense tracer vs its CPU run: {hg.shape}, "
+                             f"{both.sum()} common hits, agreement {agree}, "
+                             f"median |ddepth| {median}")
+    prof = profile_frames(render, 1, out_dir, tag="tracer-profile",
+                          name="profile_trace_tracer.json")
+    return dict(agree=agree, median=median, max=float(gap.max()),
+                hits=int(hg.sum()), ms=median_ms(render, 5), cpu_ms=cpu_ms,
+                kernels=prof["kernels"], memsets=prof["memsets"],
+                samples=int(got.march_samples))
+
+
+def check_mesh(state, voxel_size: float) -> dict:
+    """16e: ``extract_mesh`` on the card against the same function on a
+    CPU copy of the map: the same vertices and triangles, in order."""
+    import torch
+
+    from dynslam_tpu_torch.viz.meshing import extract_mesh
+
+    v, t = extract_mesh(state, voxel_size)
+    ms = median_ms(lambda: extract_mesh(state, voxel_size), 3)
+    host = cpu_state(state)
+    t0 = time.perf_counter()
+    vc, tc = extract_mesh(host, voxel_size)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(v.cpu(), vc) and torch.equal(t.cpu(), tc)):
+        differ = int((v.cpu() != vc).any(1).sum()) \
+            if v.shape == vc.shape else "?"
+        raise AssertionError(
+            f"extract_mesh on the card: {tuple(v.shape)} vertices, "
+            f"{tuple(t.shape)} triangles; on the CPU {tuple(vc.shape)}, "
+            f"{tuple(tc.shape)}; {differ} vertices differ")
+    return dict(verts=int(v.shape[0]), tris=int(t.shape[0]), ms=ms,
+                cpu_ms=cpu_ms)
+
+
+def run_phase16(base, sdir: Path, split, dyn_frames, dyn, k2f):
+    """Phase 16 on phase 13's folder (``base``: its CLI arguments,
+    ``split``: its split run) with phase 8's largest track (``dyn``)
+    and phase 15's free-pose K2 times (``k2f``), for comparison.
+    Returns what the kernels line reports launches of: the prefetching
+    run, the run with meshes, the overlays' ``Timed`` and the renders."""
+    # 16a. phase 13's split run again with the prefetching reader
+    pre16 = run_cli(base + ["--out", sdir / "out_prefetch", "--frame_limit",
+                            STAGED_SPLIT, "--checkpoint_out",
+                            sdir / "split_prefetch.npz",
+                            "--enable_evaluation", "--prefetch"])
+    pf = check_prefetch(split, pre16, sdir / "out_split",
+                        sdir / "out_prefetch")
+    say("prefetch", f"--prefetch: {', '.join(pf['files'])} byte-identical to"
+                    f" phase 13's split run; 1-read-input mean "
+                    f"{pf['read_ms'][1]:.2f} ms a frame (without: "
+                    f"{pf['read_ms'][0]:.2f}); "
+                    f"{pf['fps'][1]:.2f} FPS over frames "
+                    f"{PREFETCH_FPS_FRAMES.start}-"
+                    f"{PREFETCH_FPS_FRAMES.stop - 1} (without: "
+                    f"{pf['fps'][0]:.2f})")
+
+    # 16b. meshes, direct refinement and the LIDAR error overlay
+    from dynslam_tpu_torch import main as cli
+    from dynslam_tpu_torch.instances.reconstructor import (
+        InstanceReconstructor,
+    )
+
+    out16 = sdir / "out_refine"
+    tee = Tee(sys.stdout)
+    refine = Timed(InstanceReconstructor, "_direct_refine_motion")
+    overlay = Timed(cli, "_write_lidar_error")
+    with contextlib.redirect_stdout(tee), refine, overlay:
+        rb = run_cli(base + ["--out", out16, "--enable_evaluation",
+                             "--dump_previews_every", STAGED_PREVIEWS,
+                             "--save_mesh", "--save_object_meshes",
+                             "--direct_refinement"])
+    rf = check_refine_run(rb, tee.text, refine, overlay, dyn_frames, out16)
+    say("refine", f"--save_mesh: static_map.obj {rf['tris']} triangles over "
+                  f"{rf['verts']} vertices (need >= {MIN_STATIC_TRIS}); "
+                  f"object meshes {rf['objs']}; {rf['refined']} object "
+                  f"motions refined in {len(rf['refine_ms'])} calls, "
+                  f"{sum(rf['refine_ms']):.1f} ms in all ("
+                  f"{sum(rf['refine_ms']) / N_DYN:.1f} ms a frame, median "
+                  f"{statistics.median(rf['refine_ms']):.1f} a call); "
+                  f"{rf['fps']:.2f} FPS over frames {DYN_FPS_FRAMES.start}-"
+                  f"{DYN_FPS_FRAMES.stop - 1}; final pose error "
+                  f"{rf['err'] * 100:.2f} cm over {rf['travelled']:.1f} m; "
+                  f"launches {rb.launches}")
+    say("refine", f"LIDAR error overlays at {W}x{H} (green, red, "
+                  "green/(green+red)): " + "; ".join(
+                      f"frame {f} {g} {r} {s:.4f}"
+                      for f, (g, r, s) in rf["green"].items())
+        + f"; {overlay.pre} K2 pre-passes and {overlay.march} marches in "
+          f"{len(overlay.ms)} overlays (the objects' depth renders)")
+
+    # 16c. the renderer
+    rr = check_renderer(rb.dyn, sdir / "render")
+    say("render", f"render_orbit {ORBIT_FRAMES} frames (hits {rr['hits']}),"
+                  f" render_chase_sequence {rr['chase']} frames; K2 launches "
+                  f"{rr['launches']} (orbit {rr['orbit']}); in K2's range "
+                  f"{rr['kernels']:.0f} launches and {rr['memsets']:.0f} "
+                  f"memsets a render")
+
+    # 16d. the dense tracer at half the frame
+    tr = check_tracer(rb.dyn.static_scene, sdir / "render")
+    say("tracer", f"MapEngine.get_raycast at {TRACER_W}x{TRACER_H} (the "
+                  f"dense tracer) vs its CPU run: hit agreement "
+                  f"{tr['agree'] * 100:.4f}%, median |ddepth| "
+                  f"{tr['median']:.3g} m, max {tr['max']:.3g} m, {tr['hits']}"
+                  f" hits, {tr['samples']} samples; {tr['ms']:.2f} ms a "
+                  f"render, {tr['kernels']} launches and {tr['memsets']} "
+                  f"memsets (CPU {tr['cpu_ms']:.1f} ms); K2 at {W}x{H} from "
+                  f"the free pose: {k2f['kernel_ms']:.4f} ms bare, "
+                  f"{k2f['wrapper_ms']:.4f} ms wrapper, 2 launches")
+
+    # 16e. extract_mesh on the card vs the CPU
+    ms16 = check_mesh(rb.dyn.static_scene.state,
+                      rb.dyn.static_scene.cfg.voxel_size)
+    if ms16["tris"] != rf["tris"]:
+        raise AssertionError(f"extract_mesh {ms16['tris']} triangles, "
+                             f"static_map.obj {rf['tris']}")
+    handle = dyn["track"].reconstruction
+    mslot = check_mesh(handle.state, handle.cfg.voxel_size)
+    if mslot["tris"] == 0:
+        raise AssertionError(f"phase 8's slot {handle.slot}: no triangles")
+    say("mesh", f"extract_mesh on the card equals its CPU run: the static "
+                f"map {ms16['tris']} triangles, {ms16['verts']} vertices, "
+                f"{ms16['ms']:.1f} ms (CPU {ms16['cpu_ms']:.1f} ms); phase "
+                f"8's largest slot ({handle.slot}, track {dyn['track'].id}) "
+                f"{mslot['tris']} triangles, {mslot['ms']:.1f} ms (CPU "
+                f"{mslot['cpu_ms']:.1f} ms)")
+    return pre16, rb, overlay, rr
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_kernels(parent: Optional[Path]) -> dict:
@@ -2002,6 +2398,7 @@ def main(argv=None) -> int:
                     help="a checkout of the parent commit: its kernels are "
                          "built and timed beside these on the same inputs")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -2400,6 +2797,10 @@ def main(argv=None) -> int:
                    f"{reads_text(k2s['reads'])}")
     say("K2-slot", timing_text(k2s))
 
+    # 16. the CLI's last outputs
+    pre16, rb, overlay, rr = run_phase16(base, sdir, split, dyn_frames, dyn,
+                                         k2f)
+
     k1_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/integrate.cu",
                   replaces="dynslam_tpu/ops/pallas_integrate.py:536")
     k2_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/raycast.cu",
@@ -2454,6 +2855,42 @@ def main(argv=None) -> int:
         kernel_entry("raycast/pool-slot", k2_src, slot_r, slot_r / N_DYN,
                      k2s),
     ]
+    # phase 16's launches by role, with the times of phases 3 and 15: the
+    # prefetching run (16a), the run with meshes and direct refinement
+    # (16b) without its overlays, the overlays' object renders (pool
+    # slots) and the renderer (16c)
+    pl, bl, rl = pre16.launches, rb.launches, rr["launches"]
+    n_ov = len(overlay.ms)
+    kernels += [
+        kernel_entry("integrate/staged-prefetch", k1_src, pl["integrate"],
+                     pl["integrate"] / STAGED_SPLIT, k1),
+        kernel_entry("raycast/candidates-staged-prefetch", k2_src,
+                     pl["candidates"], pl["candidates"] / STAGED_SPLIT,
+                     k2f["pre"]),
+        kernel_entry("raycast/staged-prefetch", k2_src, pl["raycast"],
+                     pl["raycast"] / STAGED_SPLIT, k2f),
+        kernel_entry("integrate/staged-refine-mesh", k1_src, bl["integrate"],
+                     bl["integrate"] / N_DYN, k1),
+        kernel_entry("raycast/candidates-staged-refine-mesh", k2_src,
+                     bl["candidates"] - overlay.pre,
+                     (bl["candidates"] - overlay.pre) / N_DYN, k2f["pre"]),
+        kernel_entry("raycast/staged-refine-mesh", k2_src,
+                     bl["raycast"] - overlay.march,
+                     (bl["raycast"] - overlay.march) / N_DYN, k2f),
+        kernel_entry("raycast/candidates-lidar-error-overlay", k2_src,
+                     overlay.pre, overlay.pre / n_ov, k2s["pre"]),
+        kernel_entry("raycast/lidar-error-overlay", k2_src, overlay.march,
+                     overlay.march / n_ov, k2s),
+        kernel_entry("raycast/candidates-renderer", k2_src,
+                     rl["candidates"], rl["candidates"] / rr["renders"],
+                     k2f["pre"]),
+        kernel_entry("raycast/renderer", k2_src, rl["raycast"],
+                     rl["raycast"] / rr["renders"], k2f),
+    ]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        raise AssertionError(f"paths whose kernel never launched: {idle}")
+    say("done", f"phases 1-16 in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -178,9 +178,22 @@ class Input:
     def read_right_color(self, frame_idx: int) -> np.ndarray:
         return self._read_image(self.config.right_color_folder, frame_idx)
 
-    def read_next_frame(self) -> bool:
-        left = self.read_left_color(self.frame_idx)
-        right = self.read_right_color(self.frame_idx)
+    def load_frame(self, frame_idx: int):
+        """Frame ``frame_idx``'s stereo pair and, where the depth comes
+        from files, its depth: only reads, so a reader thread can run it
+        (``io/prefetch.py``). Returns (left, right, depth or None)."""
+        left = self.read_left_color(frame_idx)
+        right = self.read_right_color(frame_idx)
+        depth = None
+        if isinstance(self.depth_provider, PrecomputedDepthProvider):
+            depth = self.depth_provider.get_depth(
+                frame_idx, self.stereo_calibration, self.input_scale)
+        return left, right, depth
+
+    def set_frame(self, left: np.ndarray, right: np.ndarray,
+                  depth: Optional[np.ndarray] = None) -> None:
+        """Make a loaded frame the current one and advance ``frame_idx``;
+        a depth ``load_frame`` left out is computed from the pair here."""
         want = (self.frame_height, self.frame_width)
         if left.shape[:2] != want:
             raise ValueError(
@@ -192,16 +205,18 @@ class Input:
             raise ValueError(f"Unexpected right RGB frame size "
                              f"{right.shape[:2]}; calibration specified "
                              f"{want}")
-        if isinstance(self.depth_provider, PrecomputedDepthProvider):
-            self.depth_provider.set_frame(self.frame_idx)
-        depth = self.depth_provider.depth_from_stereo(
-            left, right, self.stereo_calibration, self.input_scale)
+        if depth is None:
+            depth = self.depth_provider.depth_from_stereo(
+                left, right, self.stereo_calibration, self.input_scale)
         if depth.shape != want:
             raise ValueError(f"Unexpected depth map size {depth.shape}; "
                              f"expected {want}")
         self._left_color, self._right_color, self._depth_mm = \
             left, right, depth
         self.frame_idx += 1
+
+    def read_next_frame(self) -> bool:
+        self.set_frame(*self.load_frame(self.frame_idx))
         return True
 
     def get_images(self) -> Tuple[np.ndarray, np.ndarray]:

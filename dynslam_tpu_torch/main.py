@@ -11,10 +11,8 @@ Usage::
 
 The pipelines run on the GPU; ``--cpu`` runs the kernels' plain PyTorch
 versions on the CPU instead. Without ``--fused`` the staged pipeline runs
-(``pipeline/builder.py::build_dynslam``); with it the fused steps.
-``--direct_refinement``, ``--save_mesh``, ``--save_object_meshes`` and
-``--prefetch`` wait for later slices and fail with the slice's name; the
-LIDAR error overlay of ``--dump_previews_every`` is skipped with one line.
+(``pipeline/builder.py::build_dynslam``); with it the fused steps, which
+take every flag but ``--direct_refinement`` and a delayed evaluation.
 """
 
 from __future__ import annotations
@@ -26,14 +24,6 @@ import sys
 import time
 
 import numpy as np
-
-#: flags of later slices: the ROADMAP item that brings each
-DEFERRED = {
-    "direct_refinement": "ops/direct_align.py (ROADMAP.md Queue 1 item 10)",
-    "save_mesh": "viz/meshing.py (ROADMAP.md Queue 1 item 10)",
-    "save_object_meshes": "viz/meshing.py (ROADMAP.md Queue 1 item 10)",
-    "prefetch": "io/prefetch.py (ROADMAP.md Queue 1 item 10)",
-}
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -53,8 +43,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-dynamic_mode", dest="dynamic_mode",
                    action="store_false")
     p.add_argument("--direct_refinement", action="store_true", default=False,
-                   help="dense photometric refinement of object motion "
-                        "(not ported yet: fails)")
+                   help="refine each object's motion by dense photometric "
+                        "alignment of its consecutive views (staged path "
+                        "only; the reference ships this disabled)")
     p.add_argument("--use_bilateral_filter", action="store_true",
                    default=False,
                    help="bilateral-filter the input depth before fusion")
@@ -87,16 +78,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--dump_previews_every", type=int, default=0,
                    help="write raycast preview PNGs every k frames")
     p.add_argument("--save_mesh", action="store_true", default=False,
-                   help="not ported yet: fails")
+                   help="write the static map's mesh as static_map.obj")
     p.add_argument("--save_object_meshes", action="store_true",
-                   default=False, help="not ported yet: fails")
+                   default=False,
+                   help="write each reconstructed object's mesh as "
+                        "object_<id>_<class>.obj")
     p.add_argument("--cpu", action="store_true", default=False,
                    help="run on the CPU (the kernels' plain versions)")
     p.add_argument("--tiny", action="store_true", default=False,
                    help="small pools and feature counts (tests, small "
                         "inputs)")
     p.add_argument("--prefetch", action="store_true", default=False,
-                   help="not ported yet: fails")
+                   help="read the next frame in a background thread")
     p.add_argument("--min_detection_size", type=int, default=None,
                    help="min detection side in px (default: the "
                         "reference's 45)")
@@ -192,6 +185,40 @@ def _write_previews(out: str, n: int, color: np.ndarray,
     write_png(os.path.join(out, f"frame{n:06d}_depth.png"), depth_img)
 
 
+def _write_lidar_error(out: str, n: int, dyn, input_) -> None:
+    """The LIDAR-vs-fused-depth error overlay of frame ``n``, where its
+    scan exists (the GUI's visual diff modes, headless)."""
+    from dynslam_tpu_torch.eval.error_viz import render_depth_error
+    from dynslam_tpu_torch.io.images import write_png
+
+    ev = dyn.evaluation
+    frame = input_.frame_offset + n
+    if ev is None or not ev.velodyne.frame_available(frame):
+        return
+    overlay = render_depth_error(
+        ev.velodyne.read_frame(frame),
+        dyn.get_static_map_raycast_depth_preview().cpu().numpy(),
+        input_.get_images()[0], ev.calib.velo_to_left_cam,
+        ev.calib.proj_left_color, ev.calib.proj_right_color,
+        ev.baseline_m * ev.focal_px)
+    write_png(os.path.join(out, f"frame{n:06d}_lidar_error.png"), overlay)
+
+
+def _print_tracks(tracks) -> None:
+    for t in tracks:
+        vol = t.reconstruction.get_used_block_count() \
+            if t.has_reconstruction() else 0
+        print(f"[track #{t.id} {t.class_name} {t.state.value}: "
+              f"{len(t.frames)} frames, {t.fused_frames} fused, "
+              f"{vol} blocks]")
+
+
+def _object_mesh_paths(out: str, tracks):
+    """(track, OBJ path) of each track with a reconstruction."""
+    return [(t, os.path.join(out, f"object_{t.id}_{t.class_name}.obj"))
+            for t in tracks if t.has_reconstruction()]
+
+
 def run_fused(args, cfg, device) -> int:
     """--fused: the fused frame steps driven over the sequence."""
     import torch
@@ -207,7 +234,7 @@ def run_fused(args, cfg, device) -> int:
         min_detection_size_px=args.min_detection_size,
         with_evaluation=args.enable_evaluation,
         csv_out_dir=args.csv_out_dir or os.path.join(args.out, "csv"),
-        device=device)
+        use_prefetch=args.prefetch, device=device)
     n = 0
     if args.resume_from:
         from dynslam_tpu_torch.pipeline.checkpoint import load_fused_checkpoint
@@ -256,6 +283,8 @@ def run_fused(args, cfg, device) -> int:
         pipe.finalize()
     if pipe.evaluation is not None:
         pipe.evaluation.close()
+    if args.prefetch:
+        input_.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if t_steady is not None and n - n_start > 3:
@@ -271,15 +300,33 @@ def run_fused(args, cfg, device) -> int:
     est = np.stack([np.eye(4)] + [np.linalg.inv(p) for p in poses]) \
         if poses else np.eye(4)[None]
     write_kitti_poses(os.path.join(args.out, "trajectory.txt"), est)
+    if args.save_mesh:
+        from dynslam_tpu_torch.viz.meshing import extract_mesh, write_obj
+
+        verts, tris = extract_mesh(pipe.carry.state, pipe.cfg.voxel_size)
+        write_obj(os.path.join(args.out, "static_map.obj"), verts, tris)
+        print(f"[saved static map mesh: {tris.shape[0]} triangles]")
     if segp is not None:
-        for t in pipe.tracker.active_tracks.values():
-            vol = t.reconstruction.get_used_block_count() \
-                if t.has_reconstruction() else 0
-            print(f"[track #{t.id} {t.class_name} {t.state.value}: "
-                  f"{len(t.frames)} frames, {t.fused_frames} fused, "
-                  f"{vol} blocks]")
+        tracks = list(pipe.tracker.active_tracks.values())
+        _print_tracks(tracks)
+        if args.save_object_meshes:
+            from dynslam_tpu_torch.viz.meshing import save_engine_mesh
+
+            for t, path in _object_mesh_paths(args.out, tracks):
+                nt = save_engine_mesh(t.reconstruction, path)
+                print(f"[saved object #{t.id} mesh: {nt} triangles]")
     print(f"[map: {pipe.get_used_block_count()} blocks, "
           f"{pipe.get_dropped_allocation_count()} dropped allocations]")
+    if segp is not None:
+        nd = pipe.get_dropped_detection_count()
+        if nd:
+            print(f"[WARNING: {nd} detections exceeded the {pipe.K} mask "
+                  f"slots over the run (largest kept); raise "
+                  f"instance_map.max_detections]")
+        if pipe.oversize_masks:
+            print(f"[{pipe.oversize_masks} oversized masks exceeded the "
+                  f"fusion crop; {pipe.truncated_pixels} px truncated (0 = "
+                  f"every one took the full-frame fallback)]")
     return 0
 
 
@@ -298,7 +345,7 @@ def run_staged(args, cfg, device) -> int:
         with_evaluation=args.enable_evaluation,
         csv_out_dir=args.csv_out_dir or os.path.join(args.out, "csv"),
         min_detection_size_px=args.min_detection_size,
-        device=device)
+        use_prefetch=args.prefetch, device=device)
     n = 0
     if args.resume_from:
         from dynslam_tpu_torch.pipeline.checkpoint import load_checkpoint
@@ -306,7 +353,6 @@ def run_staged(args, cfg, device) -> int:
         n = load_checkpoint(args.resume_from, dyn)
         input_.frame_idx = input_.frame_offset + n
         print(f"[resumed from {args.resume_from} at frame {n}]")
-    n_start, overlay_said = n, False
     while dyn.process_frame(input_):
         ms = dyn.last_frame_ms()
         _check_pose(args, n, dyn.get_current_pose())
@@ -318,15 +364,12 @@ def run_staged(args, cfg, device) -> int:
                 args.out, n,
                 dyn.get_static_map_raycast_preview(preview=PreviewType.COLOR),
                 dyn.get_static_map_raycast_preview(preview=PreviewType.DEPTH))
-            if dyn.evaluation is not None and not overlay_said:
-                print("[the LIDAR error overlay (eval/error_viz.py) is not "
-                      "ported yet (ROADMAP.md Queue 1 item 10); colour and "
-                      "depth previews written]")
-                overlay_said = True
+            _write_lidar_error(args.out, n, dyn, input_)
         if n and n % 50 == 0:
             print(_device_memory_line(device))
         n += 1
-        if args.frame_limit and n - n_start >= args.frame_limit:
+        # frames counted from the sequence's start, a resumed run's too
+        if args.frame_limit and n >= args.frame_limit:
             break
     if args.checkpoint_out:
         from dynslam_tpu_torch.pipeline.checkpoint import save_checkpoint
@@ -336,15 +379,24 @@ def run_staged(args, cfg, device) -> int:
     dyn.finalize()
     if dyn.evaluation is not None:
         dyn.evaluation.close()
+    if args.prefetch:
+        input_.close()
     est = np.stack([np.linalg.inv(p) for p in dyn.pose_history[1:]])
     write_kitti_poses(os.path.join(args.out, "trajectory.txt"), est)
-    if dyn.instance_reconstructor is not None:
-        for t in dyn.instance_reconstructor.tracker.active_tracks.values():
-            vol = t.reconstruction.get_used_block_count() \
-                if t.has_reconstruction() else 0
-            print(f"[track #{t.id} {t.class_name} {t.state.value}: "
-                  f"{len(t.frames)} frames, {t.fused_frames} fused, "
-                  f"{vol} blocks]")
+    if args.save_mesh:
+        tris = dyn.save_static_map(os.path.join(args.out, "static_map.obj"))
+        print(f"[saved static map mesh: {tris} triangles]")
+    rec = dyn.instance_reconstructor
+    if rec is not None:
+        if cfg.use_direct_refinement:
+            print(f"[direct refinement: {rec.direct_refinements} object "
+                  f"motions refined]")
+        tracks = list(rec.tracker.active_tracks.values())
+        _print_tracks(tracks)
+        if args.save_object_meshes:
+            for t, path in _object_mesh_paths(args.out, tracks):
+                dyn.save_dynamic_object(t.id, path)
+                print(f"[saved object #{t.id} mesh: {path}]")
     print(dyn.get_timing_report())
     scene = dyn.static_scene
     print(f"[map: {scene.get_used_block_count()} blocks, "
@@ -356,10 +408,9 @@ def run_staged(args, cfg, device) -> int:
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
-    for flag, where in DEFERRED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} needs {where}, which "
-                             "dynslam_tpu_torch does not have yet")
+    if args.fused and args.direct_refinement:
+        raise SystemExit("--fused does not support --direct_refinement; use "
+                         "the staged path for it")
     from dynslam_tpu_torch.device import resolve_device
 
     device = resolve_device("cpu" if args.cpu else None)

@@ -240,6 +240,38 @@ def circular_match(cur_left: Features, cur_right: Features,
     return torch.where(valid[:, None], flow, 0.0), valid
 
 
+def refine_stereo_disparity(left_img: torch.Tensor, right_img: torch.Tensor,
+                            u_left: torch.Tensor, v_left: torch.Tensor,
+                            u_right: torch.Tensor,
+                            radius: int = 3) -> torch.Tensor:
+    """Subpixel right-image x of stereo matches: a parabola through the
+    patch SADs at x-shifts -1, 0 and +1 (viso2's match.refinement=1),
+    plus the left feature's own subpixel remainder, so that u_left -
+    u_right measures the relative displacement. (M,) each; the JAX
+    package's ``features.refine_stereo_disparity``, which has no caller."""
+    h, w = left_img.shape
+    ul = torch.round(u_left).to(torch.int64)
+    vl = torch.round(v_left).to(torch.int64)
+    ur = torch.round(u_right).to(torch.int64)
+    offs = torch.arange(-radius, radius + 1, device=left_img.device)
+    dy = offs.repeat_interleave(2 * radius + 1)  # row-major (dy, dx)
+    dx = offs.repeat(2 * radius + 1)
+
+    def patch(img, uc, shift: int):
+        yy = torch.clamp(vl[:, None] + dy, 0, h - 1)
+        xx = torch.clamp(uc[:, None] + dx + shift, 0, w - 1)
+        return img[yy, xx]  # (M, P)
+
+    pl = patch(left_img, ul, 0)
+    sm, s0, sp = ((pl - patch(right_img, ur, s)).abs().sum(-1)
+                  for s in (-1, 0, 1))
+    denom = sm - 2.0 * s0 + sp
+    off = torch.where(denom > 1e-6,
+                      0.5 * (sm - sp) / torch.clamp(denom, min=1e-6), 0.0)
+    off = torch.clamp(off, -1.0, 1.0)
+    return ur.to(torch.float32) + off + (u_left - ul.to(torch.float32))
+
+
 #: per-match LK window side: samples stay within 6.4 px of the rounded
 #: centre, so a window anchored 8 px before it covers every read with
 #: interior central differences

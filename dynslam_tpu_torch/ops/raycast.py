@@ -48,7 +48,8 @@ import torch
 from dynslam_tpu_torch.device import constant
 from dynslam_tpu_torch.ops import cuda_build
 from dynslam_tpu_torch.ops.tsdf import (
-    SDF_SCALE, WEIGHT_SCALE, TsdfConfig, TsdfState, grid_linear, unpack_rgb,
+    SDF_SCALE, WEIGHT_SCALE, Raycast, TsdfConfig, TsdfState, grid_linear,
+    unpack_rgb,
 )
 
 _BIG = 1e9
@@ -58,16 +59,6 @@ SUPER = 4
 #: for the march kernel's own static shared memory
 SMEM_OPTIN_BYTES = 232448
 _SMEM_RESERVE = 1024
-
-
-class Raycast(NamedTuple):
-    depth: torch.Tensor  # (H, W) f32 z-depth, 0 = miss
-    points: torch.Tensor  # (H, W, 3) f32 world-frame hit points
-    color: torch.Tensor  # (H, W, 3) uint8
-    weight: torch.Tensor  # (H, W) f32 voxel weight at the hit
-    hit: torch.Tensor  # (H, W) bool
-    #: () int64: samples the rays executed in this render
-    march_samples: torch.Tensor
 
 
 class _March(NamedTuple):

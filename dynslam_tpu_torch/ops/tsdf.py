@@ -12,8 +12,11 @@ The data layout and rules carry over unchanged:
   ascending slot assignment, the visible-block list, decay GC and the
   memory statistics.
 
-Fusion (``ops/integrate.py``) and raycasting (``ops/raycast.py``) live
-beside their CUDA kernels.
+Fusion (``ops/integrate.py``) and the full-frame raycast
+(``ops/raycast.py``) live beside their CUDA kernels. ``raycast`` here is
+the JAX package's dense free-camera tracer (``compute_block_df`` and a
+distance-field march at any image size): XLA there, plain PyTorch here,
+on the state's device.
 
 The pool is updated IN PLACE (``allocate``, ``decay``, and fusion write
 into the state's tensors); this replaces the JAX package's
@@ -27,10 +30,11 @@ and a scatter, so it needs no device-to-host sync; the JAX package's
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dynslam_tpu_torch.device import constant
 
@@ -143,6 +147,16 @@ class TsdfState:
 
     def clone(self) -> "TsdfState":
         return TsdfState(*(getattr(self, f.name).clone() for f in fields(self)))
+
+
+class Raycast(NamedTuple):
+    depth: torch.Tensor  # (H, W) f32 z-depth, 0 = miss
+    points: torch.Tensor  # (H, W, 3) f32 world-frame hit points
+    color: torch.Tensor  # (H, W, 3) uint8
+    weight: torch.Tensor  # (H, W) f32 voxel weight at the hit
+    hit: torch.Tensor  # (H, W) bool
+    #: () int64: samples the rays executed in this render
+    march_samples: torch.Tensor
 
 
 def create_state(cfg: TsdfConfig, device) -> TsdfState:
@@ -416,6 +430,175 @@ def visible_blocks(
     slots = compact_mask(sel, cfg.max_visible_blocks, cfg.pool_capacity)
     mask = slots < cfg.pool_capacity
     return slots.to(torch.int32), mask
+
+
+# ---------------------------------------------------------------------------
+# the dense free-camera tracer
+# ---------------------------------------------------------------------------
+
+
+def compute_block_df(cfg: TsdfConfig, grid: torch.Tensor) -> torch.Tensor:
+    """Capped Chebyshev distance, in blocks, from each local-grid cell to
+    the nearest allocated one: 0 on an allocated cell, k where none lies
+    within k - 1 cells, at most ``df_cap``. ``df_cap - 1`` min-dilations
+    over the 3x3x3 neighbourhood (a min is exact in any order). Returns
+    (n_cells,) int8."""
+    occ = (grid >= 0).view(1, 1, *cfg.local_dims)
+    d = torch.where(occ, 0.0, float(cfg.df_cap))
+    for _ in range(cfg.df_cap - 1):
+        d = torch.minimum(d, 1.0 - F.max_pool3d(-d, 3, 1, 1))
+    return d.reshape(-1).to(torch.int8)
+
+
+def _rotate(M: torch.Tensor, x, y, z):
+    """``[x, y, z] @ M[:3, :3].T`` per component, in ``transform_points``'
+    order (a chain of fused multiply-adds over the row)."""
+    return [fma(M[i, 2], z, fma(M[i, 1], y, M[i, 0] * x)) for i in range(3)]
+
+
+def raycast(
+    cfg: TsdfConfig,
+    state: TsdfState,
+    grid: torch.Tensor,  # (n_cells,) int32
+    origin: torch.Tensor,  # (3,) int32
+    cam_to_world: torch.Tensor,  # (4, 4) f32
+    intrinsics: torch.Tensor,  # (4,) f32 fx, fy, cx, cy
+    width: Optional[int] = None,
+    height: Optional[int] = None,
+) -> Raycast:
+    """The JAX package's two-phase dense tracer (``tsdf.raycast``) at any
+    image size, on the state's device:
+
+    - coarse, at half resolution: a march over the block distance field,
+      leaping (df - 0.5) blocks a step, until an allocated block; the
+      entry t upsampled as the minimum over each 3x3 neighbourhood, less
+      one block;
+    - fine: a sphere trace of the packed TSDF from there, the first
+      confident +/- crossing interpolated linearly; colour and weight
+      read at the interpolated hit.
+
+    Rays start where they enter the local window. Divisions by a constant
+    are multiplications by its float32 reciprocal and ``a * b + c`` one
+    fused multiply-add, as XLA computes them."""
+    w = width or cfg.width
+    h = height or cfg.height
+    dev = state.device
+    n_cells = cfg.n_cells
+    block = cfg.block_size
+    inv_block, inv_voxel = recip32(block), recip32(cfg.voxel_size)
+    fx, fy, cx, cy = intrinsics[0], intrinsics[1], intrinsics[2], intrinsics[3]
+    vv = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    uu = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    R = cam_to_world[:3, :3]
+    cam_pos = cam_to_world[:3, 3]
+    # world-frame directions, z-normalised (|rd| != 1), so t is z-depth
+    rd = torch.stack(_rotate(R, (uu - cx) / fx, (vv - cy) / fy,
+                             torch.ones_like(uu)), -1)
+
+    df = compute_block_df(cfg, grid)
+    grid_ext = torch.cat([grid, grid.new_full((1,), -1)])
+    df_ext = torch.cat([df, df.new_full((1,), cfg.df_cap)])
+    packed_flat = state.tsdf_w.reshape(-1)
+    P = cfg.pool_capacity
+
+    t_min = float(np.float32(cfg.min_depth * 0.6))
+    t_max = float(np.float32(cfg.max_depth * 1.05))
+
+    # the ray's t interval inside the local window's box
+    box_lo = origin.to(torch.float32) * block
+    box_hi = box_lo + constant(cfg.local_dims, torch.float32, dev) * block
+    inv_d = 1.0 / torch.where(rd.abs() < 1e-9, 1e-9, rd)
+    t1 = (box_lo - cam_pos) * inv_d
+    t2 = (box_hi - cam_pos) * inv_d
+    t_enter = torch.clamp(torch.minimum(t1, t2).amax(-1), min=t_min)
+    t_leave = torch.clamp(torch.maximum(t1, t2).amin(-1), max=t_max)
+
+    def at(dirs, t):
+        return fma(dirs, t[..., None], cam_pos)
+
+    def cell_index(pos):
+        blk = torch.floor(pos * inv_block).to(torch.int32)
+        lin, in_win = grid_linear(cfg, blk - origin)
+        return lin.to(torch.int64), in_win
+
+    # -- coarse phase at half resolution -----------------------------------
+    rd_c = rd[::2, ::2]
+    t_leave_c = t_leave[::2, ::2]
+    t = t_enter[::2, ::2]
+    entered = torch.zeros_like(t, dtype=torch.bool)
+    t_entry = torch.zeros_like(t)
+    samples = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(cfg.raycast_coarse_steps):
+        samples += (~entered & (t <= t_leave_c)).sum()
+        lin, in_win = cell_index(at(rd_c, t))
+        dfv = df_ext[lin].to(torch.float32)
+        hit_now = (dfv <= 0.5) & in_win & ~entered & (t <= t_leave_c)
+        t_entry = torch.where(hit_now, t, t_entry)
+        entered = entered | hit_now
+        t = torch.where(entered | (t > t_leave_c), t,
+                        fma(torch.clamp(dfv - 0.5, min=0.6),
+                            float(np.float32(block)), t))
+
+    # conservative upsample: the 3x3 minimum, less one block of margin
+    t_entry_inf = torch.where(entered, t_entry, float("inf"))
+    t_entry_min = -F.max_pool2d(-t_entry_inf[None], 3, 1, 1)[0]
+    t_entry = t_entry_min.repeat_interleave(2, 0).repeat_interleave(2, 1)[
+        :h, :w] - 0.6 * block
+    entered = torch.isfinite(t_entry)
+    t_entry = torch.where(entered, torch.maximum(t_entry, t_enter), 0.0)
+
+    # -- fine phase: sphere trace of the packed voxels ---------------------
+    def sample(pos):
+        lin, in_win = cell_index(pos)
+        slot = grid_ext[lin]
+        vox_c = torch.floor(pos * inv_voxel).to(torch.int32)
+        lv = vox_c - torch.floor(pos * inv_block).to(torch.int32) * BLOCK
+        vidx = (lv[..., 0] * BLOCK + lv[..., 1]) * BLOCK + lv[..., 2]
+        flat = torch.clamp(slot, 0, P - 1).to(torch.int64) * BLOCK3 + vidx
+        ok = (slot >= 0) & in_win
+        packed = torch.where(ok, packed_flat[flat], EMPTY_VOXEL)
+        sdf = (packed >> 16).to(torch.float32) * recip32(SDF_SCALE)
+        return sdf, unpack_weight(packed), torch.where(ok, flat, 0), ok
+
+    mu = cfg.mu
+    t = torch.where(entered, torch.clamp(t_entry, min=t_min), t_max + 1.0)
+    prev_sdf = torch.ones_like(t)
+    prev_t = t
+    hit_t = torch.zeros_like(t)
+    hit_flat = torch.zeros(h, w, dtype=torch.int64, device=dev)
+    found = torch.zeros(h, w, dtype=torch.bool, device=dev)
+    for _ in range(cfg.raycast_fine_steps):
+        active = ~found & (t <= t_leave)
+        samples += active.sum()
+        sdf, wv, flat, alloc = sample(at(rd, t))
+        confident = alloc & (wv > 0)
+        crossing = (prev_sdf > 0.0) & (sdf <= 0.0) & confident & active
+        denom = prev_sdf - sdf
+        frac = torch.where(denom > 1e-6,
+                           prev_sdf / torch.clamp(denom, min=1e-6), 0.0)
+        hit_t = torch.where(crossing, fma(t - prev_t, frac, prev_t), hit_t)
+        hit_flat = torch.where(crossing, flat, hit_flat)
+        found = found | crossing
+        step = torch.where(confident,
+                           torch.clamp(sdf * mu * 0.9,
+                                       min=cfg.voxel_size * 1.5),
+                           0.75 * block)
+        prev_sdf = torch.where(confident, sdf, 1.0)
+        prev_t = t
+        t = torch.where(found, t, t + step)
+
+    hit = found & (hit_t < t_max) & (hit_t > 0)
+    depth = torch.where(hit, hit_t, 0.0)
+    points = at(rd, hit_t)
+    # colour and weight at the interpolated hit's voxel (the crossing
+    # sample can sit a step behind the surface, outside the colour band)
+    _, _, flat_at_hit, ok_at_hit = sample(points)
+    hit_flat = torch.where(ok_at_hit, flat_at_hit, hit_flat)
+    color = torch.where(hit[..., None],
+                        unpack_rgb(state.color.reshape(-1)[hit_flat]), 0)
+    weight = torch.where(hit, unpack_weight(packed_flat[hit_flat]), 0.0)
+    return Raycast(depth=depth, points=points, color=color.to(torch.uint8),
+                   weight=weight, hit=hit, march_samples=samples)
 
 
 # ---------------------------------------------------------------------------

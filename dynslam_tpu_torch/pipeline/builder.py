@@ -33,6 +33,7 @@ from dynslam_tpu_torch.io.input import (
     kitti_odometry_dispnet_config, kitti_odometry_lowres_config,
     kitti_tracking_config, kitti_tracking_dispnet_config,
 )
+from dynslam_tpu_torch.io.prefetch import PrefetchingInput
 from dynslam_tpu_torch.io.segmentation import PrecomputedSegmentationProvider
 from dynslam_tpu_torch.pipeline.dynslam import DynSlam
 from dynslam_tpu_torch.pipeline.fused import FusedPipeline
@@ -41,9 +42,6 @@ from dynslam_tpu_torch.pipeline.mapping import (  # noqa: F401 (re-export)
     MapEngine, engine_config_from, instance_config_from,
 )
 from dynslam_tpu_torch.pipeline.sparse_sf import SparseSFProvider
-
-#: the ROADMAP item that brings the prefetching reader
-PREFETCH_ITEM = "ROADMAP.md Queue 1 item 10: io/prefetch.py"
 
 
 def probe_frame_size(dataset_root: str, icfg: InputConfig,
@@ -96,6 +94,16 @@ def _resolve_dataset(dataset_root: str, config: DynSlamConfig,
     return config, icfg, live_scale, calib
 
 
+def _prefetching(input_: Input, dataset_root: str, icfg: InputConfig,
+                 config: DynSlamConfig) -> PrefetchingInput:
+    """``input_`` read one frame ahead by a reader thread, which also warms
+    the page cache for the segmentation dumps in dynamic mode."""
+    return PrefetchingInput(
+        input_, prefetch_seg_folder=(
+            os.path.join(dataset_root, icfg.segmentation_folder)
+            if config.dynamic_mode else None))
+
+
 def _segmentation(dataset_root, icfg, config, frame_offset, live_scale,
                   min_detection_size_px):
     return PrecomputedSegmentationProvider(
@@ -122,12 +130,11 @@ def build_dynslam(
     device: DeviceLike = None,
     seed: int = 0,
 ) -> Tuple[DynSlam, Input]:
-    """The staged pipeline for a KITTI-layout sequence, on ``device``."""
+    """The staged pipeline for a KITTI-layout sequence, on ``device``;
+    with ``use_prefetch`` the input is a ``PrefetchingInput``."""
     from dynslam_tpu_torch.eval.evaluation import Evaluation
     from dynslam_tpu_torch.instances.reconstructor import InstanceReconstructor
 
-    if use_prefetch:
-        raise NotImplementedError(f"prefetching input: {PREFETCH_ITEM}")
     dev = resolve_device(device)
     config, icfg, live_scale, calib = _resolve_dataset(
         dataset_root, config or DynSlamConfig(), kitti_tracking_sequence,
@@ -145,6 +152,8 @@ def build_dynslam(
     input_ = Input(dataset_root, icfg, depth_provider,
                    (config.frame_width, config.frame_height), stereo_calib,
                    frame_offset, live_scale)
+    if use_prefetch:
+        input_ = _prefetching(input_, dataset_root, icfg, config)
     engine = MapEngine(engine_config_from(config), config.decay, intr,
                        device=dev)
     sf_provider = SparseSFProvider((intr.fx, intr.cx, intr.cy), stereo_calib,
@@ -191,10 +200,9 @@ def build_fused(
     (static) or ``FusedDynamicPipeline`` (dynamic mode), with a
     ``FusedEvaluation`` attached as ``pipe.evaluation`` when asked. The
     fused steps compute stereo depth themselves, so the ``Input`` carries
-    an ``InGraphDepthProvider``; segmentation comes from the MNC dumps.
-    Returns (pipeline, input, segmentation provider or None)."""
-    if use_prefetch:
-        raise NotImplementedError(f"prefetching input: {PREFETCH_ITEM}")
+    an ``InGraphDepthProvider``; segmentation comes from the MNC dumps;
+    with ``use_prefetch`` the input is a ``PrefetchingInput``. Returns
+    (pipeline, input, segmentation provider or None)."""
     config, icfg, live_scale, calib = _resolve_dataset(
         dataset_root, config or DynSlamConfig(), kitti_tracking_sequence,
         baseline_m)
@@ -203,6 +211,8 @@ def build_fused(
                                         config.max_depth_m),
                    (config.frame_width, config.frame_height),
                    config.calibration, frame_offset, live_scale)
+    if use_prefetch:
+        input_ = _prefetching(input_, dataset_root, icfg, config)
     seg_provider = None
     if config.dynamic_mode:
         seg_provider = _segmentation(dataset_root, icfg, config, frame_offset,

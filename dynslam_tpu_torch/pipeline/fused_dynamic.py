@@ -491,8 +491,15 @@ class _SlotHandle:
         self.fused_frames = 0
 
     @property
+    def cfg(self) -> tsdf.TsdfConfig:
+        return self.pipeline.icfg
+
+    @property
     def state(self) -> tsdf.TsdfState:
         return tsdf.pool_slot(self.pipeline.carry.inst, self.slot)
+
+    def get_raycast(self, cam_to_world) -> Raycast:
+        return self.pipeline.raycast_instance(self.slot, cam_to_world)
 
     def reset(self) -> None:
         self.pipeline._route_reset[self.slot] = True

@@ -6,12 +6,11 @@ driver's API (``UpdateView``, ``SetPose``, ``Integrate``,
 
 The map lives on the device and is updated in place; the pose is host
 numpy (the staged pipeline chains poses on the host). ``integrate`` runs
-K1 at one volume (``ops/integrate.py``); every render is K2
-(``ops/raycast.py``) at the full frame, from the current pose (with the
-window and visible list ``integrate`` left, as the JAX package caches
-them) or from any other pose, whose window is built at that pose. The JAX
-package's dense XLA tracer for a rescaled render (``tsdf.raycast`` with
-``width``/``height``) is not ported: such a call raises.
+K1 at one volume (``ops/integrate.py``); a full-frame render is K2
+(``ops/raycast.py``), from the current pose (with the window and visible
+list ``integrate`` left, as the JAX package caches them) or from any
+other pose, whose window is built at that pose; a render at another size
+is the dense tracer ``tsdf.raycast``, as the JAX package routes it.
 
 ``engine_config_from`` and ``instance_config_from`` build the static map's
 and an object volume's ``TsdfConfig`` from a ``DynSlamConfig``.
@@ -32,10 +31,6 @@ from dynslam_tpu_torch.ops import tsdf
 from dynslam_tpu_torch.ops.icp import IcpResult, icp_track
 from dynslam_tpu_torch.ops.integrate import integrate
 from dynslam_tpu_torch.ops.raycast import Raycast, raycast
-
-#: the ROADMAP item that brings the rescaled free-camera render
-RESCALED_RENDER_ITEM = ("ROADMAP.md Queue 1 item 10: the dense XLA tracer "
-                        "for rescaled renders")
 
 
 class PreviewType(enum.Enum):
@@ -180,16 +175,20 @@ class MapEngine:
                       width: Optional[int] = None,
                       height: Optional[int] = None,
                       reuse_cache: bool = False) -> Raycast:
-        """K2 at the full frame from ``cam_to_world`` (host 4x4): with
-        ``reuse_cache`` the window and visible list ``integrate`` built at
-        this pose, else a window built at the given pose."""
-        if (width is not None and width != self.cfg.width) or (
-                height is not None and height != self.cfg.height):
-            raise NotImplementedError(
-                f"MapEngine: a {width}x{height} render of a "
-                f"{self.cfg.width}x{self.cfg.height} map is the JAX "
-                f"package's dense tracer, not ported ({RESCALED_RENDER_ITEM})")
+        """A render from ``cam_to_world`` (host 4x4). At the full frame K2:
+        with ``reuse_cache`` over the window and visible list ``integrate``
+        built at this pose, else over a window built at the given pose. At
+        another size the dense tracer, over a window built at the pose,
+        with the engine's intrinsics (``mapping.py:175-203`` of the JAX
+        package)."""
         c2w_np = np.asarray(cam_to_world, np.float32)
+        if (width or self.cfg.width, height or self.cfg.height) != (
+                self.cfg.width, self.cfg.height):
+            c2w = upload(c2w_np, self.device)
+            origin = tsdf.compute_origin(self.cfg, c2w)
+            grid = tsdf.build_local_grid(self.cfg, self.state, origin)
+            return tsdf.raycast(self.cfg, self.state, grid, origin, c2w,
+                                self.intrinsics_vec, width, height)
         cache = self._frame_cache
         if reuse_cache and cache is not None \
                 and np.array_equal(cache[0], c2w_np):

@@ -72,6 +72,32 @@ def exp_se3(xi: torch.Tensor) -> torch.Tensor:
     return make_transform(R, (V @ v[..., None])[..., 0])
 
 
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation -> (..., 3) rotation vector."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
+    w_hat = (R - R.transpose(-1, -2)) / 2.0
+    w = torch.stack([w_hat[..., 2, 1], w_hat[..., 0, 2], w_hat[..., 1, 0]],
+                    -1)
+    s = torch.sin(theta)
+    scale = torch.where(s.abs() < 1e-7, 1.0, theta / (s + 1e-32))
+    return w * scale[..., None]
+
+
+def log_se3(T: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) transform -> (..., 6) se(3) twist (w, v)."""
+    w = log_so3(T[..., :3, :3])
+    theta2 = (w * w).sum(-1)
+    theta = torch.sqrt(theta2 + 1e-32)
+    K = hat(w / theta[..., None])
+    half = (theta / 2.0)[..., None, None]
+    cot_term = half * torch.cos(half) / (torch.sin(half) + 1e-32)
+    small = _eye3(w) - 0.5 * hat(w)
+    V_inv = small + (1.0 - cot_term) * (K @ K)
+    V_inv = torch.where((theta2 < 1e-12)[..., None, None], small, V_inv)
+    return torch.cat([w, (V_inv @ T[..., :3, 3:4])[..., 0]], -1)
+
+
 def euler_to_rot(rx, ry, rz) -> torch.Tensor:
     """viso2-style rotation R = Rx @ Ry @ Rz for same-shaped angle tensors;
     returns (..., 3, 3)."""

@@ -1,9 +1,12 @@
 """``dynslam_tpu_torch.main`` end to end on the CPU (``--cpu --tiny``)
 over a folder the port's ``write_kitti_sequence`` wrote: the staged path
-with evaluation, previews and a checkpoint, its resume, and the fused
-steps (``--fused``, static and dynamic); flags of later slices fail
-loudly with their ROADMAP item."""
+with evaluation, previews (the LIDAR error overlay included) and a
+checkpoint, its resume, and the fused steps (``--fused``, static and
+dynamic); each output flag on the paths that take it; ``--frame_limit``
+after ``--resume_from`` in both packages' CLIs; the fused path's
+end-of-run warnings."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -43,7 +46,8 @@ def test_staged_cli(seq, tmp_path, capsys):
     assert rc == 0
     text = capsys.readouterr().out
     assert "[Finished frame 2 in" in text and "[checkpoint written" in text
-    assert "LIDAR error overlay" in text  # skipped, with one line
+    overlay = read_png(os.path.join(out, "frame000002_lidar_error.png"))
+    assert overlay.shape == (H, W, 3) and overlay.any()
     traj = read_kitti_poses(os.path.join(out, "trajectory.txt"))
     assert traj.shape == (3, 4, 4) and np.isfinite(traj).all()
     names = _csv_names(out)
@@ -84,11 +88,141 @@ def test_fused_cli(seq, tmp_path, capsys, dynamic):
     assert len(_csv_names(out)) == 4 + dynamic  # the tracker file: dynamic
 
 
-@pytest.mark.parametrize("flag", sorted(main.DEFERRED))
-def test_deferred_flags_fail_loudly(seq, tmp_path, flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 10"):
-        main.main(["--dataset_root", seq, "--cpu", f"--{flag}",
-                   "--out", str(tmp_path)])
+def _capture_builds(monkeypatch) -> list:
+    """Keep what ``build_dynslam`` and ``build_fused`` return to the CLI."""
+    from dynslam_tpu_torch.pipeline import builder
+
+    built = []
+    for name in ("build_dynslam", "build_fused"):
+        fn = getattr(builder, name)
+        monkeypatch.setattr(builder, name, lambda *a, _fn=fn, **k: (
+            built.append(_fn(*a, **k)) or built[-1]))
+    return built
+
+
+def _dynamic_tracker(monkeypatch):
+    """tests/test_dynamic_pipeline.py's tracker (8 flow vectors make a
+    motion estimate), so that the car of these small frames goes Dynamic
+    and gets a volume."""
+    make = main.make_config
+
+    def make_config(args):
+        cfg = make(args)
+        return dataclasses.replace(cfg, tracker=dataclasses.replace(
+            cfg.tracker, min_flow_vectors=8))
+    monkeypatch.setattr(main, "make_config", make_config)
+
+
+@pytest.mark.parametrize("flag,path", [
+    ("save_mesh", "staged"), ("save_mesh", "fused"),
+    ("save_object_meshes", "staged"), ("save_object_meshes", "fused"),
+    ("prefetch", "staged"), ("prefetch", "fused"),
+    ("direct_refinement", "staged"), ("direct_refinement", "fused")])
+def test_cli_flag_runs(seq, tmp_path, capsys, monkeypatch, flag, path):
+    """Each output flag on each path: what it writes or prints. The fused
+    path refuses ``--direct_refinement`` as the JAX CLI does."""
+    from dynslam_tpu_torch.viz.meshing import extract_mesh
+
+    _dynamic_tracker(monkeypatch)
+    out = str(tmp_path / "out")
+    args = ["--dataset_root", seq, "--cpu", "--tiny", "--min_detection_size",
+            "8", "--out", out, f"--{flag}"]
+    if path == "fused":
+        args += ["--fused", "--max_depth", "8"]
+        if flag == "direct_refinement":
+            with pytest.raises(SystemExit, match="--direct_refinement"):
+                main.main(args)
+            return
+    pipes = _capture_builds(monkeypatch)
+    assert main.main(args) == 0
+    text = capsys.readouterr().out
+    traj = read_kitti_poses(os.path.join(out, "trajectory.txt"))
+    assert traj.shape == (N, 4, 4) and np.isfinite(traj).all()
+    pipe, input_ = pipes[0][0], pipes[0][1]
+    if flag == "save_mesh":
+        lines = open(os.path.join(out, "static_map.obj")).read().splitlines()
+        n_v = sum(ln.startswith("v ") for ln in lines)
+        faces = np.array([[int(x) for x in ln.split()[1:]]
+                          for ln in lines if ln.startswith("f ")])
+        assert len(faces) > 10_000 and faces.min() >= 1 \
+            and faces.max() <= n_v
+        state = pipe.static_scene.state if path == "staged" \
+            else pipe.carry.state
+        assert len(faces) == extract_mesh(state, 0.05)[1].shape[0]
+        assert f"[saved static map mesh: {len(faces)} triangles]" in text
+    elif flag == "save_object_meshes":
+        objs = sorted(n for n in os.listdir(out) if n.startswith("object_"))
+        assert objs and all(n.endswith("_car.obj") for n in objs)
+        tris = [sum(ln.startswith("f ") for ln in open(os.path.join(out, n)))
+                for n in objs]
+        assert max(tris) > 100 and "[saved object #" in text
+    elif flag == "prefetch":
+        from dynslam_tpu_torch.io.prefetch import PrefetchingInput
+
+        assert isinstance(input_, PrefetchingInput)
+        assert input_._pending is None  # closed at the end
+    else:
+        refined = pipe.instance_reconstructor.direct_refinements
+        assert refined >= 1
+        assert f"[direct refinement: {refined} object motions refined]" \
+            in text
+
+
+def test_resume_frame_limit_counts_absolute_frames(seq, tmp_path, capsys):
+    """``--frame_limit`` after ``--resume_from`` counts frames from the
+    sequence's start in both packages' staged CLIs
+    (``dynslam_tpu/main.py:405``): a run resumed at frame 2 with limit 3
+    processes frame 2 alone."""
+    from dynslam_tpu import main as jmain
+
+    ck = str(tmp_path / "ck.npz")
+    base = ["--dataset_root", seq, "--cpu", "--tiny", "--no-dynamic_mode"]
+    assert main.main(base + ["--frame_limit", "2", "--checkpoint_out", ck,
+                             "--out", str(tmp_path / "first")]) == 0
+    trajs = []
+    for tag, m in (("jax", jmain), ("port", main)):
+        out = str(tmp_path / tag)
+        assert m.main(base + ["--resume_from", ck, "--frame_limit", "3",
+                              "--out", out]) == 0
+        trajs.append(read_kitti_poses(os.path.join(out, "trajectory.txt")))
+    text = capsys.readouterr().out
+    assert "[Finished frame 2 in" in text and "[Finished frame 3 in" \
+        not in text
+    jt, tt = trajs
+    assert jt.shape == tt.shape == (3, 4, 4)
+    np.testing.assert_allclose(tt, jt, atol=5e-3)
+
+
+def test_fused_warnings(tmp_path, capsys, monkeypatch):
+    """The fused path's end-of-run warnings (``dynslam_tpu/main.py:
+    241-250``) with the pipeline's counters: three cars against one mask
+    slot (detections dropped) and a fusion crop smaller than a car (the
+    oversize masks, each fused by the full-frame fallback)."""
+    root = str(tmp_path / "seq")
+    write_kitti_sequence(root, num_frames=N, width=W, height=H,
+                         with_dynamic=True, n_dynamic=3)
+    make = main.make_config
+
+    def make_config(args):
+        cfg = make(args)
+        return dataclasses.replace(cfg, instance_map=dataclasses.replace(
+            cfg.instance_map, max_detections=1, max_objects=1,
+            fusion_crop=(16, 16)), tracker=dataclasses.replace(
+                cfg.tracker, min_flow_vectors=8))
+    monkeypatch.setattr(main, "make_config", make_config)
+    pipes = _capture_builds(monkeypatch)
+    assert main.main(["--dataset_root", root, "--cpu", "--tiny", "--fused",
+                      "--max_depth", "8", "--min_detection_size", "8",
+                      "--out", str(tmp_path / "out")]) == 0
+    text = capsys.readouterr().out
+    pipe = pipes[0][0]
+    nd, ov = pipe.get_dropped_detection_count(), pipe.oversize_masks
+    assert nd > 0 and ov > 0
+    assert f"[WARNING: {nd} detections exceeded the 1 mask slots over the " \
+        f"run (largest kept); raise instance_map.max_detections]" in text
+    assert f"[{ov} oversized masks exceeded the fusion crop; " \
+        f"{pipe.truncated_pixels} px truncated (0 = every one took the " \
+        f"full-frame fallback)]" in text
 
 
 def test_fused_rejects_delayed_evaluation(seq, tmp_path):

@@ -58,6 +58,14 @@ SLICE_MODULES = [
     "dynslam_tpu_torch.instances.volume_pool",
     "dynslam_tpu_torch.instances.reconstructor",
     "dynslam_tpu_torch.main",
+    # the CLI's last outputs
+    "dynslam_tpu_torch.viz.meshing",
+    "dynslam_tpu_torch.viz.renderer",
+    "dynslam_tpu_torch.io.prefetch",
+    "dynslam_tpu_torch.ops.direct_align",
+    "dynslam_tpu_torch.eval.error_viz",
+    "dynslam_tpu_torch.io.tracklets",
+    "dynslam_tpu_torch.eval.tracking_eval",
 ]
 
 

@@ -4,8 +4,8 @@ held to; its Pallas raycast in interpret mode: ``jax_kernel_renders``),
 fed the same views at the same ground-truth poses of the
 ``write_kitti_sequence`` scene at 160x120: integrate, the prepare render,
 renders from a free pose off the trajectory and at a past pose, every
-``PreviewType``, decay, catch-up and reap counts, ICP, and a rescaled
-render, which the port does not have."""
+``PreviewType``, decay, catch-up and reap counts, ICP, and renders at
+half the frame size, which both engines route to the dense tracer."""
 
 import dataclasses
 
@@ -139,6 +139,10 @@ def _run():
     rec["previews"] = {p.value: je.get_image(p) for p in jm.PreviewType}
     rec["preview_free"] = je.get_image(jm.PreviewType.COLOR,
                                        rec["poses"]["free"])
+    rec["rescaled"] = {k: tuple(e.get_raycast(p, W // 2, H // 2)
+                                for e in (je, te))
+                       for k, p in (("current", c2w),
+                                    ("free", rec["poses"]["free"]))}
     return rec
 
 
@@ -244,12 +248,20 @@ def test_catchup_and_reap_counts(run):
     assert te.get_used_block_count() == 0 and te.fused_frames == 0
 
 
-def test_rescaled_render_raises():
-    te = tm.MapEngine(tm.engine_config_from(to_port(CFG)),
-                      to_port(CFG.decay), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        te.get_raycast(np.eye(4, dtype=np.float32), width=W // 2,
-                       height=H // 2)
+def test_rescaled_render_raises(run):
+    """A render at another size than the frame's is the dense tracer in
+    both engines (the port raised here while it had no tracer): hit
+    agreement and median depth gap within the tracer's bounds
+    (``test_torch_dense_raycast.py``), over maps that part by float order
+    (``assert_words``)."""
+    for what, (jr, tr) in run["rescaled"].items():
+        assert tr.depth.shape == (H // 2, W // 2), what
+        jd, td = np.asarray(jr.depth), tr.depth.numpy()
+        both = (jd > 0) & (td > 0)
+        assert ((jd > 0) == (td > 0)).mean() >= 0.999, what
+        # the free pose's top-left quarter holds little of the map
+        assert both.mean() >= 0.01, what
+        assert np.median(np.abs(jd - td)[both]) <= 1e-5, what
 
 
 def test_config_translators_match_jax():
