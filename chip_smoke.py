@@ -121,9 +121,31 @@ and never prints its last line):
     of (b)'s static map and of phase 8's largest slot equal to its run on
     CPU copies.
 
-Phases 3, 4, 7, 9, 12, 14 and 15 also print each kernel's times: the bare kernel
-(its prepared C call alone, no Python conversion between launches), warm
-(50 back-to-back launches between two CUDA events) and cold (the L2
+17. the learned models and the parallel paths, on the frames of phases 5
+    and 8: (a) DispNet-lite (shipped widths, max disparity 128) from a
+    seeded Flax-layout param set through ``convert.flax_to_state_dict``,
+    its 1242x375 forward on the card against a CPU copy (TF32 off), then
+    30 Adam steps at batch 2 against the static frames' disparity ``bf /
+    depth``, whose loss must fall below 0.7 of the first; (b) SegNet-lite
+    trained 600 steps on the dynamic frames' car masks but the last, the
+    learned provider on that held-out frame (a detection overlapping a car
+    at IoU > 0.5; the same boxes and >= 99.9% equal masks from a CPU copy)
+    and a ``save_params``/``load_params`` round trip; (c) the sharded training
+    step at world size 1 over NCCL against the unsharded one, ``entry()``
+    and ``dryrun_multichip(1)`` on the card; (d) static and dynamic batch
+    evaluation of 4 sequence maps (sequence s is static frames s..s+3; the
+    dynamic run adds phase 8's car masks and the shipped object volumes)
+    at the bench configuration: finite metrics within JAX's test bounds on
+    the last frame, K1 launches a frame (1 static, 2 dynamic), sequence 0
+    equal to a one-sequence run, the pools' bytes and sequence-frames a
+    second; (e) K1 on the sequence pool: the static run's first
+    ``integrate_many`` call against ``integrate_ref`` map by map, with its
+    times.
+
+Phases 3, 4, 7, 9, 12, 14, 15 and 17 also print each kernel's times: the
+bare kernel (its prepared C call alone, no Python conversion between
+launches), warm (50 back-to-back launches between two CUDA events) and
+cold (the L2
 flushed by a 128 MB write before each launch, an event pair around each);
 the wrapper's time (the whole Python call, as earlier records gave it);
 the bound (the bytes of the inputs the function reads, each once, plus
@@ -148,6 +170,7 @@ import contextlib
 import dataclasses
 import json
 import linecache
+import math
 import os
 import statistics
 import subprocess
@@ -2339,6 +2362,439 @@ def run_phase16(base, sdir: Path, split, dyn_frames, dyn, k2f):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the learned models, sharding, and batch evaluation of sequence
+# maps
+# ---------------------------------------------------------------------------
+
+#: 17a: DispNet-lite's training on the static frames (Adam), the loss fall
+#: it must reach (the mean of the last 5 steps' losses over the first
+#: step's), and its forward on the card against a CPU copy, TF32 off (px)
+DISP_STEPS, DISP_BATCH, DISP_LR, DISP_MAX_LOSS_FALL = 30, 2, 1e-3, 0.7
+DISP_FWD_ATOL = 1e-3
+#: 17b: SegNet-lite's training on the dynamic frames but the last (held
+#: out), the overlap (IoU) a detection must reach with one car's truth
+#: pixels there (200 steps could leave a frame-wide blob that covers a
+#: car but overlaps it by 0.12), and the detections' agreement with a
+#: CPU copy of the model
+SEG_STEPS, SEG_BATCH, SEG_LR = 600, 2, 3e-3
+MIN_CAR_IOU, SEG_MIN_MASK_AGREE = 0.5, 0.999
+#: 17c: the sharded step at world size 1 against the unsharded one, both
+#: on the card: the losses (relative), and the parameters after the steps
+#: (Adam turns a gradient near 0 into a step of ~lr, so a flip of its sign
+#: between two runs costs up to 2 lr a step; the median tightly)
+SHARD_STEPS, SHARD_LOSS_RTOL, SHARD_PARAM_MEDIAN = 3, 1e-5, 1e-6
+#: 17d: sequences and frames of the batch evaluation (sequence s is static
+#: frames s..s+3); JAX's test bounds on the last frame
+#: (tests/test_batch_eval.py:71-72): mean |error| < 0.25 m and hit
+#: fraction > 0.5, the latter of the pixels a render can hit (ground truth
+#: within the fusion range; the bench frames' sky, ~40%, has none)
+BE_SEQ, BE_FRAMES = 4, 4
+BE_MAX_ERR_M, BE_MIN_HIT = 0.25, 0.5
+
+
+def gray_rgb(gray, device):
+    """Gray uint8 frames (N, H, W) as (N, 3, H, W) float32 in [0, 255] on
+    ``device``, the models' input."""
+    import torch
+
+    g = torch.tensor(gray, dtype=torch.float32, device=device)
+    return g[:, None].expand(-1, 3, -1, -1).contiguous()
+
+
+def seeded_flax_params(model, seed: int) -> dict:
+    """A Flax-layout param set for ``model``'s convolutions (``{"params":
+    {"Conv_<i>": {"kernel" HWIO, "bias"}}}``, numpy) drawn from ``seed``:
+    kernels lecun-normal (variance 1 / fan_in, clipped at 2 sigma), biases
+    N(0, 0.01)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    params = {}
+    for i, conv in enumerate(model.convs):
+        cout, cin, kh, kw = conv.weight.shape
+        std = (1.0 / (cin * kh * kw)) ** 0.5 / 0.87962566103423978
+        kernel = np.clip(rng.standard_normal((kh, kw, cin, cout)), -2, 2) * std
+        params[f"Conv_{i}"] = {
+            "kernel": kernel.astype(np.float32),
+            "bias": rng.normal(0.0, 0.01, cout).astype(np.float32)}
+    return {"params": params}
+
+
+def timed_ms(fn):
+    """(fn(), its wall ms between two device synchronisations)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def dispnet_data(config, frames, device) -> dict:
+    """The static frames as DispNet-lite's training set: gray images as RGB,
+    the true disparity ``bf / depth`` and its valid mask (depth known,
+    disparity within the bench's stereo range), on the card."""
+    import torch
+
+    depth = torch.tensor(frames["depth"], device=device)
+    bf = config.calibration.baseline_m * config.calibration.focal_length_px
+    disp = torch.where(depth > 0, bf / depth.clamp(min=1e-6), 0.0)
+    return dict(left=gray_rgb(frames["left"], device),
+                right=gray_rgb(frames["right"], device), disparity=disp,
+                valid=(depth > 0) & (disp <= config.stereo.max_disparity))
+
+
+def seeded_dispnet(config, seed: int):
+    from dynslam_tpu_torch.convert import flax_to_state_dict
+    from dynslam_tpu_torch.models import dispnet
+
+    model = dispnet.create_model(
+        max_disparity=float(config.stereo.max_disparity))
+    model.load_state_dict(flax_to_state_dict(seeded_flax_params(model, seed)))
+    return model
+
+
+def check_dispnet(config, frames, device) -> dict:
+    """17a: a seeded Flax-layout param set converted to the module; its
+    forward at the full frame on the card against a CPU copy, then
+    ``DISP_STEPS`` Adam steps on batches of two static frames."""
+    import copy
+
+    import torch
+
+    from dynslam_tpu_torch.models import dispnet
+
+    model = seeded_dispnet(config, SEED)
+    cpu = copy.deepcopy(model)
+    model.to(device)
+    data = dispnet_data(config, frames, device)
+    left, right = data["left"][:1], data["right"][:1]
+    with torch.no_grad():
+        got = model(left, right)
+        want = cpu(left.cpu(), right.cpu())
+        err = float((got.cpu() - want).abs().max())
+        if not bool(torch.isfinite(got).all()) or err > DISP_FWD_ATOL:
+            raise AssertionError(f"DispNet-lite on the card vs a CPU copy: "
+                                 f"max |d disparity| {err} px (bound "
+                                 f"{DISP_FWD_ATOL})")
+        infer_ms = median_ms(lambda: model(left, right), 20)
+    step = dispnet.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=DISP_LR))
+    n = data["left"].shape[0]
+    losses, ms = [], []
+    for it in range(DISP_STEPS):
+        idx = [(it + 3 * j) % n for j in range(DISP_BATCH)]
+        loss, t = timed_ms(lambda: step({k: v[idx] for k, v in data.items()}))
+        losses.append(float(loss))
+        ms.append(t)
+    fall = statistics.mean(losses[-5:]) / losses[0]
+    if not all(map(math.isfinite, losses)) or not fall < DISP_MAX_LOSS_FALL:
+        raise AssertionError(f"DispNet-lite training: losses {losses}, the "
+                             f"last 5 at {fall:.3f} of the first (need < "
+                             f"{DISP_MAX_LOSS_FALL})")
+    return dict(err=err, infer_ms=infer_ms, step_ms=statistics.median(ms[3:]),
+                losses=losses, fall=fall,
+                valid=float(data["valid"].float().mean()))
+
+
+def check_segnet(frames, device, out_dir: Path) -> dict:
+    """17b: SegNet-lite trained on the card against the dynamic frames' car
+    masks, the learned provider on the held-out last frame (a detected
+    car, the same detections from a CPU copy, ms a frame), and a
+    ``save_params``/``load_params`` round trip."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dynslam_tpu_torch.models import segnet
+
+    model = segnet.init_params(segnet.create_model(),
+                               torch.Generator().manual_seed(SEED))
+    model.to(device)
+    rgb = gray_rgb(frames["left"], device)
+    cars = torch.tensor(frames["objid"] > 0, device=device)
+    n = rgb.shape[0] - 1  # the last frame is held out
+    step = segnet.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=SEG_LR))
+    losses, ms = [], []
+    for it in range(SEG_STEPS):
+        idx = [(it + 5 * j) % n for j in range(SEG_BATCH)]
+        loss, t = timed_ms(lambda: step(dict(rgb=rgb[idx], mask=cars[idx])))
+        losses.append(float(loss))
+        ms.append(t)
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    if not all(map(math.isfinite, losses)) or not last < first:
+        raise AssertionError(f"SegNet-lite training: losses {losses[:10]} ... "
+                             f"{losses[-10:]}")
+    frame = np.repeat(frames["left"][n][..., None], 3, -1)
+    truth = frames["objid"][n]
+    prov = segnet.LearnedSegmentationProvider(model,
+                                              min_detection_size_px=DET_MIN_PX)
+    res = prov.segment_frame(frame)
+    frame_ms = [timed_ms(lambda: prov.segment_frame(frame))[1]
+                for _ in range(5)]
+    found = []
+    for d in res.instance_detections:
+        pred = d.copy_mask.to_full_frame(*truth.shape)
+        ids, counts = np.unique(truth[pred & (truth > 0)], return_counts=True)
+        if ids.size:
+            car = truth == ids[np.argmax(counts)]
+            found.append((float((car & pred).sum() / car.sum()),
+                          float((car & pred).sum() / (car | pred).sum())))
+    if not found or max(iou for _, iou in found) <= MIN_CAR_IOU:
+        raise AssertionError(f"SegNet-lite on held-out frame {n}: "
+                             f"{len(res.instance_detections)} detections, "
+                             f"(truth covered, IoU) of their cars {found}")
+    got = prov.raw_detections(frame)
+    want = segnet.LearnedSegmentationProvider(
+        copy.deepcopy(model).cpu(),
+        min_detection_size_px=DET_MIN_PX).raw_detections(frame)
+    boxes = [[(b.x0, b.y0, b.x1, b.y1) for b, *_ in dets]
+             for dets in (got, want)]
+    agree = min((g[3] == w[3]).mean() for g, w in zip(got, want)) \
+        if boxes[0] == boxes[1] else 0.0
+    if boxes[0] != boxes[1] or agree < SEG_MIN_MASK_AGREE:
+        raise AssertionError(f"the provider on the card vs a CPU copy: boxes "
+                             f"{boxes[0]} vs {boxes[1]}, mask agreement "
+                             f"{agree} (need >= {SEG_MIN_MASK_AGREE})")
+    path = out_dir / "segnet.msgpack"
+    segnet.save_params(str(path), model)
+    back = segnet.load_params(str(path), segnet.create_model())
+    for k, v in model.state_dict().items():
+        if not torch.equal(back.state_dict()[k], v.cpu()):
+            raise AssertionError(f"save_params/load_params: {k} differs")
+    return dict(step_ms=statistics.median(ms[3:]), losses=losses,
+                frame_ms=statistics.median(frame_ms), held_out=n,
+                detections=len(res.instance_detections), found=found,
+                boxes=boxes[0], agree=agree, bytes=path.stat().st_size)
+
+
+def check_sharding(config, frames, device) -> dict:
+    """17c: the sharded DispNet-lite step on a (1, 1) mesh over NCCL
+    against the unsharded step, both on the card from the same seeded
+    weights and batch; then ``entry()`` and ``dryrun_multichip(1)`` on the
+    card."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dynslam_tpu_torch.entry import dryrun_multichip, entry
+    from dynslam_tpu_torch.models import dispnet
+    from dynslam_tpu_torch.parallel import launch, sharding
+
+    base = seeded_dispnet(config, SEED + 1)
+    data = dispnet_data(config, frames, device)
+    batch = {k: v[:DISP_BATCH] for k, v in data.items()}
+    with launch.group(1, 0, device) as dev:
+        mesh = sharding.make_mesh(1, 1, dev)
+        one = copy.deepcopy(base).to(dev)
+        step = dispnet.make_train_step(
+            one, torch.optim.Adam(one.parameters(), lr=DISP_LR))
+        sharded = sharding.shard_params(mesh, base)
+        sstep = sharding.make_sharded_train_step(
+            mesh, sharded, torch.optim.Adam(sharded.parameters(), lr=DISP_LR))
+        local = sharding.shard_batch(mesh, batch)
+        want = [float(step(batch)) for _ in range(SHARD_STEPS)]
+        got = [float(sstep(local)) for _ in range(SHARD_STEPS)]
+        params = sharding.gather_params(mesh, sharded)
+        backend = torch.distributed.get_backend()
+    diff = torch.cat([(params[k] - v).abs().flatten()
+                      for k, v in one.state_dict().items()]).cpu().numpy()
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    if rel > SHARD_LOSS_RTOL or diff.max() > 2 * DISP_LR * SHARD_STEPS \
+            or np.median(diff) > SHARD_PARAM_MEDIAN:
+        raise AssertionError(f"sharded step vs unsharded: losses {got} vs "
+                             f"{want}, params max |d| {diff.max()}, median "
+                             f"{np.median(diff)}")
+    fn, args = entry(device)
+    _, depth = fn(*args)
+    hit = float((depth > 0).float().mean())
+    if not hit > 0.5:
+        raise AssertionError(f"entry(): hit fraction {hit}")
+    dryrun_multichip(1, device)  # raises on a failed check; prints its line
+    return dict(backend=backend, losses=got, rel=rel, max_diff=diff.max(),
+                median_diff=float(np.median(diff)), entry_hit=hit)
+
+
+def sequence_frames(frames, idx, device) -> dict:
+    """Time-major (T, S, ...) stacks of the static frames ``idx`` (T, S),
+    with their ground-truth depth and poses."""
+    import numpy as np
+    import torch
+
+    poses = frames["poses"][idx]
+    return dict(
+        rgb=torch.tensor(np.repeat(frames["left"][idx][..., None], 3, -1),
+                         device=device),
+        depth=torch.tensor(frames["depth"][idx], device=device),
+        cam_to_world=torch.tensor(poses, device=device),
+        world_to_cam=torch.tensor(np.linalg.inv(poses), device=device))
+
+
+def check_batch_metrics(cfg, metrics, depth, what: str) -> dict:
+    """JAX's test bounds on the last frame (``BE_MAX_ERR_M``, and
+    ``BE_MIN_HIT`` of the pixels within the fusion range)."""
+    import torch
+
+    d = depth[-1]
+    reach = ((d >= cfg.min_depth) & (d <= cfg.max_depth)).float().mean(
+        (1, 2))
+    last = metrics[-1]
+    hit = last[:, -1]
+    if not bool(torch.isfinite(metrics).all()) \
+            or not bool((last[:, 0] < BE_MAX_ERR_M).all()) \
+            or not bool((hit > BE_MIN_HIT * reach).all()):
+        raise AssertionError(f"{what} metrics on the last frame "
+                             f"{last.tolist()} (pixels within the fusion "
+                             f"range {reach.tolist()})")
+    return dict(last=last.tolist(), reach=reach.tolist())
+
+
+def check_batch_eval(config, dconfig, frames, dyn_frames, device) -> dict:
+    """17d: static and dynamic batch evaluation of ``BE_SEQ`` sequence maps
+    at the bench configuration (the dynamic run with phase 8's car masks
+    and the shipped object volumes): metrics, K1 launches a frame, the
+    pools' bytes, sequence-frames a second, and sequence 0 against a
+    one-sequence run. The static run's first ``integrate_many`` call (all
+    maps) is recorded for 17e."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from dynslam_tpu_torch.ops import tsdf
+    from dynslam_tpu_torch.parallel import batch_eval
+    from dynslam_tpu_torch.pipeline.mapping import (
+        engine_config_from, instance_config_from,
+    )
+
+    cfg, icfg = engine_config_from(config), instance_config_from(dconfig)
+    # sequence s is frames s..s+BE_FRAMES-1
+    idx = np.arange(BE_FRAMES)[:, None] + np.arange(BE_SEQ)[None]
+    fr = sequence_frames(frames, idx, device)
+    seq_frames = BE_SEQ * BE_FRAMES
+
+    def pool_bytes(*pools):
+        return sum(getattr(p, f.name).nbytes for p in pools
+                   for f in dc.fields(p))
+
+    recorder = FusionRecorder(batch_eval.integrate_many)
+    batch_eval.integrate_many = recorder
+    try:
+        states = batch_eval.stacked_states(cfg, BE_SEQ, device)
+        reset_launches()
+        (states, metrics), static_ms = timed_ms(
+            lambda: batch_eval.make_batch_eval(cfg)(states, fr))
+        static_k1 = launch_counts()["integrate"]
+    finally:
+        batch_eval.integrate_many = recorder.fn
+    fr["obj_mask"] = torch.tensor(dyn_frames["objid"][idx] > 0, device=device)
+    dyn_states = (batch_eval.stacked_states(cfg, BE_SEQ, device),
+                  batch_eval.stacked_states(icfg, BE_SEQ, device))
+    reset_launches()
+    (dyn_states, dmetrics), dyn_ms = timed_ms(
+        lambda: batch_eval.make_dynamic_batch_eval(cfg, icfg)(dyn_states, fr))
+    dyn_k1 = launch_counts()["integrate"]
+    if static_k1 != BE_FRAMES or dyn_k1 != 2 * BE_FRAMES:
+        raise AssertionError(f"K1 launches: static {static_k1}, dynamic "
+                             f"{dyn_k1} over {BE_FRAMES} frames (need 1 and "
+                             "2 a frame)")
+    st = check_batch_metrics(cfg, metrics, fr["depth"], "static")
+    dy = check_batch_metrics(cfg, dmetrics, fr["depth"], "dynamic")
+    # sequence 0 alone, through the one-sequence step
+    one = tsdf.create_state(cfg, device)
+    one_m = []
+    for t in range(BE_FRAMES):
+        one, m = batch_eval._fusion_eval_step(
+            cfg, one, fr["rgb"][t, 0], fr["depth"][t, 0],
+            fr["cam_to_world"][t, 0], fr["world_to_cam"][t, 0], t)
+        one_m.append(torch.stack(m))
+    for k in ("tsdf_w", "color", "block_coords", "valid"):
+        if not torch.equal(getattr(one, k), getattr(states, k)[0]):
+            raise AssertionError(f"sequence 0's {k} differs from the "
+                                 "one-sequence run")
+    gap = float((torch.stack(one_m) - metrics[:, 0]).abs().max())
+    return dict(static=st, dynamic=dy, static_k1=static_k1, dyn_k1=dyn_k1,
+                static_fps=seq_frames / (static_ms / 1e3),
+                dyn_fps=seq_frames / (dyn_ms / 1e3),
+                static_bytes=pool_bytes(states),
+                dyn_bytes=pool_bytes(*dyn_states), gap=gap,
+                blocks=[int(states.valid[s].sum()) for s in range(BE_SEQ)],
+                dyn_err=dmetrics[-1, :, 1].tolist(), recorder=recorder)
+
+
+def run_phase17(config, dconfig, frames, dyn_frames, device, flush,
+                parent) -> dict:
+    """Phase 17: the learned models, sharding at world size 1, batch
+    evaluation of sequence maps and K1 on their pool. Returns 17e's
+    times and the K1 launches of 17d's runs."""
+    from dynslam_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    dn = check_dispnet(config, frames, device)
+    say("dispnet", f"DispNet-lite (widths 32, 64, 96, 128; max disparity "
+                   f"{config.stereo.max_disparity}) from a seeded Flax-layout "
+                   f"param set, {W}x{H}: the card vs a CPU copy (TF32 off) "
+                   f"max |d disparity| {dn['err']:.3g} px (bound "
+                   f"{DISP_FWD_ATOL}); inference {dn['infer_ms']:.3f} ms "
+                   f"(batch 1); {DISP_STEPS} Adam steps (lr {DISP_LR}, batch "
+                   f"{DISP_BATCH}, {dn['valid']:.3f} of the pixels valid) "
+                   f"{dn['step_ms']:.3f} ms a step (median); loss "
+                   f"{dn['losses'][0]:.3f} -> {dn['losses'][-1]:.3f} px, the "
+                   f"last 5 at {dn['fall']:.3f} of the first (need < "
+                   f"{DISP_MAX_LOSS_FALL})")
+    sn = check_segnet(dyn_frames, device, cuda_build.BUILD_DIR)
+    say("segnet", f"SegNet-lite (widths 24, 48, 96) trained {SEG_STEPS} Adam "
+                  f"steps (lr {SEG_LR}, batch {SEG_BATCH}) on dynamic frames "
+                  f"0-{sn['held_out'] - 1}: {sn['step_ms']:.3f} ms a step "
+                  f"(median), loss {sn['losses'][0]:.4f} -> "
+                  f"{sn['losses'][-1]:.4f}; on held-out frame "
+                  f"{sn['held_out']} the provider gives "
+                  f"{sn['detections']} detections in {sn['frame_ms']:.2f} ms "
+                  f"a frame, (truth covered, IoU) of the cars they hit "
+                  f"{[(round(a, 3), round(b, 3)) for a, b in sn['found']]} "
+                  f"(need one IoU > {MIN_CAR_IOU}); a CPU copy gives "
+                  f"the same boxes {sn['boxes']}, masks {sn['agree']:.5f} "
+                  f"equal; params file {sn['bytes']} bytes round-trips")
+    sh = check_sharding(config, frames, device)
+    say("sharding", f"sharded step on a (data 1, model 1) mesh over "
+                    f"{sh['backend']} vs the unsharded step, {SHARD_STEPS} "
+                    f"Adam steps at {W}x{H}: losses {sh['losses']} (rel "
+                    f"{sh['rel']:.3g}), params max |d| {sh['max_diff']:.3g}, "
+                    f"median {sh['median_diff']:.3g}; entry() on the card "
+                    f"hit {sh['entry_hit']:.3f}; dryrun_multichip(1) printed "
+                    "its line above")
+    be = check_batch_eval(config, dconfig, frames, dyn_frames, device)
+    say("batch-eval", f"{BE_SEQ} sequence maps x {BE_FRAMES} frames at the "
+                      f"bench configuration: K1 launches {be['static_k1']} "
+                      f"static, {be['dyn_k1']} dynamic (1 and 2 a frame); "
+                      f"pools {be['static_bytes'] / 2 ** 30:.3f} GiB static, "
+                      f"{be['dyn_bytes'] / 2 ** 30:.3f} GiB dynamic; "
+                      f"{be['static_fps']:.2f} sequence-frames/s static, "
+                      f"{be['dyn_fps']:.2f} dynamic (dense tracer renders); "
+                      f"blocks a map {be['blocks']}; last frame (|error| m, "
+                      f"hit) {be['static']['last']}, dynamic (unified, "
+                      f"coverage) {be['dynamic']['last']} of "
+                      f"{be['static']['reach']} within the fusion range; "
+                      f"sequence 0 equals its one-sequence run (metrics gap "
+                      f"{be['gap']:.3g})")
+    k1s = check_integrate_many(be["recorder"].best, flush, parent)
+    say("K1-seq", f"integrate_many over {len(k1s['vols'])} sequence maps "
+                  f"({k1s['blocks']} visible blocks, {k1s['pixels']} distinct"
+                  f" pixels read) vs integrate_ref per map: "
+                  f"{k1s['exact'] * 100:.4f}% words bit-exact (worst map; "
+                  f"need >= {K1_MIN_EXACT * 100:.2f}%), max |dsdf| "
+                  f"{k1s['max_abs_err']:.3g}, |dw| {k1s['dw']} q, |dcolor| "
+                  f"{k1s['dcolor']}")
+    say("K1-seq", timing_text(k1s))
+    say("phase17", f"{time.perf_counter() - t0:.1f} s")
+    return dict(k1s=k1s, launches=be["static_k1"] + be["dyn_k1"])
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_kernels(parent: Optional[Path]) -> dict:
@@ -2801,6 +3257,10 @@ def main(argv=None) -> int:
     pre16, rb, overlay, rr = run_phase16(base, sdir, split, dyn_frames, dyn,
                                          k2f)
 
+    # 17. the learned models, sharding, and batch evaluation
+    p17 = run_phase17(config, dconfig, frames, dyn_frames, device, flush,
+                      parent)
+
     k1_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/integrate.cu",
                   replaces="dynslam_tpu/ops/pallas_integrate.py:536")
     k2_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/raycast.cu",
@@ -2887,10 +3347,15 @@ def main(argv=None) -> int:
         kernel_entry("raycast/renderer", k2_src, rl["raycast"],
                      rl["raycast"] / rr["renders"], k2f),
     ]
+    # phase 17d's static and dynamic batch evaluations (1 and 2 launches a
+    # frame over the sequence maps) with 17e's times
+    kernels.append(kernel_entry("integrate/sequence-maps", k1_src,
+                                p17["launches"], p17["launches"] / BE_FRAMES,
+                                p17["k1s"]))
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"paths whose kernel never launched: {idle}")
-    say("done", f"phases 1-16 in {time.perf_counter() - t_start:.1f} s")
+    say("done", f"phases 1-17 in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,10 @@
 """Carry state between the JAX package and the port as numpy arrays.
 
-Names follow the JAX package's fields: ``TsdfState``'s for the map, and
+The learned models' weights map Flax's ``Conv_<i>`` (kernels HWIO) onto a
+module's ``convs.<i>`` (weights OIHW) and back
+(``flax_to_state_dict``, ``state_dict_to_flax``).
+
+Map and carry names follow the JAX package's fields: ``TsdfState``'s for the map, and
 for a fused-pipeline carry the dotted paths of ``FusedCarry`` (or
 ``FusedDynCarry``) in the order ``jax.tree_util.tree_leaves`` flattens it
 (``FUSED_CARRY_KEYS``, ``FUSED_DYN_CARRY_KEYS``), so the ``leaf_<i>``
@@ -40,6 +44,36 @@ FUSED_DYN_CARRY_KEYS = (
 )
 #: dynamic-carry fields the port keeps as host numpy
 _HOST_DYN_KEYS = ("inst_fidx", "pending_org", "prev_pending_org")
+
+
+def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A Flax conv model's variables (``{"params": {"Conv_<i>": {"kernel":
+    HWIO, "bias"}}}``, as numpy) as the ``state_dict`` of its module here
+    (``convs.<i>.weight`` OIHW, ``convs.<i>.bias``)."""
+    out = {}
+    for name, p in variables["params"].items():
+        i = int(name.split("_")[1])
+        kernel = np.asarray(p["kernel"], np.float32)
+        out[f"convs.{i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+        out[f"convs.{i}.bias"] = torch.from_numpy(
+            np.asarray(p["bias"], np.float32).copy())
+    return out
+
+
+def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of ``flax_to_state_dict``: Flax's variables as numpy,
+    convs in order, each ``{"kernel", "bias"}`` (the key order Flax
+    creates, so ``utils/msgpack.to_bytes`` writes Flax's bytes)."""
+    n = len([k for k in state if k.endswith(".weight")])
+    params = {}
+    for i in range(n):
+        w = state[f"convs.{i}.weight"].detach().float().cpu().numpy()
+        params[f"Conv_{i}"] = {
+            "kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+            "bias": state[f"convs.{i}.bias"].detach().float().cpu().numpy(),
+        }
+    return {"params": params}
 
 
 def tsdf_config_from_jax(cfg) -> TsdfConfig:

@@ -7,7 +7,8 @@ has no ``cv2``).
   three channels and alpha dropped, as OpenCV does); any other PNG raises.
   All five row filters are undone (``_unfilter``).
 - ``png_size``: (width, height) from the IHDR chunk alone.
-- ``write_png``: 8-bit gray or RGB, every row filtered with Up.
+- ``write_png``: 8-bit gray or RGB, the bytes ``cv2.imwrite`` writes
+  (libpng's Sub filter, zlib level 1 run-length, 8 KiB IDAT chunks).
 - ``read_opencv_xml`` / ``write_opencv_xml``: OpenCV's XML
   ``FileStorage`` holding one ``opencv-matrix`` node (the ELAS depth
   dumps); the reader takes the first matrix node, as
@@ -15,8 +16,12 @@ has no ``cv2``).
 - ``resize_nearest``: ``cv2.resize(..., interpolation=INTER_NEAREST)``:
   source index ``min(floor(x / scale), src - 1)`` in double precision,
   OpenCV's ``resizeNN`` rule.
+- ``connected_components``: ``cv2.connectedComponentsWithStats`` at
+  8-connectivity, label for label (``scipy.ndimage.label``, relabelled in
+  OpenCV's 2x2-block scan order).
 
-``tests/test_torch_images.py`` holds each to ``cv2`` byte for byte.
+``tests/test_torch_images.py`` (``test_torch_segnet.py`` for the
+components) holds each to ``cv2`` byte for byte.
 """
 
 from __future__ import annotations
@@ -129,24 +134,69 @@ def _chunk(kind: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
 
 
-def write_png(path: str, image: np.ndarray, level: int = 6) -> None:
-    """Write (H, W) gray or (H, W, 3) RGB uint8 as an 8-bit PNG."""
+#: libpng's IDAT chunk size (its zlib buffer)
+_IDAT_BYTES = 8192
+
+
+def _zlib_window_bits(n: int) -> int:
+    """libpng's ``png_deflate_claim``: the deflate window shrinks to the
+    data where the data is at most 16 KiB."""
+    bits, half = 15, 1 << 14
+    if n <= 16384:
+        while n + 262 <= half:
+            half >>= 1
+            bits -= 1
+    return bits
+
+
+def _optimize_cmf(z: bytes, n: int) -> bytes:
+    """libpng's ``optimize_cmf``: the zlib header of a stream of at most
+    16 KiB of data declares the smallest window that holds it."""
+    cmf = z[0]
+    if n > 16384 or (cmf & 0x0f) != 8 or (cmf & 0xf0) > 0x70:
+        return z
+    cinfo = cmf >> 4
+    half = 1 << (cinfo + 7)
+    if n > half:
+        return z
+    while True:
+        half >>= 1
+        cinfo -= 1
+        if not (cinfo > 0 and n <= half):
+            break
+    cmf = (cmf & 0x0f) | (cinfo << 4)
+    flg = z[1] & 0xe0
+    flg += 0x1f - ((cmf << 8) + flg) % 0x1f
+    return bytes([cmf, flg]) + z[2:]
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write (H, W) gray or (H, W, 3) RGB uint8 as an 8-bit PNG, byte for
+    byte as ``cv2.imwrite`` writes it (with the channels in BGR order):
+    every row Sub-filtered (None where the image is one pixel wide, as
+    libpng drops Sub there), zlib level 1 with the run-length strategy,
+    libpng's window size and header, IDAT chunks of 8192 bytes."""
     img = np.asarray(image)
     if img.dtype != np.uint8 or not (img.ndim == 2 or (
             img.ndim == 3 and img.shape[2] == 3)):
         raise ValueError(f"write_png: (H, W) or (H, W, 3) uint8, not "
                          f"{img.shape} {img.dtype}")
     h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else 3
     flat = img.reshape(h, -1)
-    up = flat.copy()
-    up[1:] -= flat[:-1]  # Up: each byte minus the byte above, mod 256
-    rows = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
+    sub = flat.copy()
+    sub[:, bpp:] -= flat[:, :-bpp]  # Sub: minus the byte a pixel left
+    rows = np.concatenate([np.full((h, 1), 1 if w > 1 else 0, np.uint8),
+                           sub], axis=1).tobytes()
+    c = zlib.compressobj(1, zlib.DEFLATED, _zlib_window_bits(len(rows)), 8,
+                         zlib.Z_RLE)
+    z = _optimize_cmf(c.compress(rows) + c.flush(), len(rows))
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if img.ndim == 2 else 2,
                        0, 0, 0)
     with open(path, "wb") as f:
-        f.write(_PNG_SIG + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
-                + _chunk(b"IEND", b""))
+        f.write(_PNG_SIG + _chunk(b"IHDR", ihdr) + b"".join(
+            _chunk(b"IDAT", z[i:i + _IDAT_BYTES])
+            for i in range(0, len(z), _IDAT_BYTES)) + _chunk(b"IEND", b""))
 
 
 #: OpenCV's FileStorage depth letters (``ucwsifdh``)
@@ -182,22 +232,75 @@ def read_opencv_xml(path: str) -> np.ndarray:
     return data.reshape(rows, cols)
 
 
+#: OpenCV's XML emitter starts a new line where a value would end past
+#: this column (``wrap_margin``)
+_XML_WRAP = 71
+
+
 def write_opencv_xml(path: str, name: str, matrix: np.ndarray) -> None:
     """Write a 2-D int16 array as OpenCV's ``FileStorage`` writes one
-    matrix node (``fs.write(name, matrix)``)."""
+    matrix node (``fs.write(name, matrix)``), byte for byte: values on
+    lines indented by 4, a line broken before a value that would end past
+    column 71."""
     m = np.asarray(matrix)
     if m.ndim != 2 or m.dtype != np.int16:
         raise ValueError(f"write_opencv_xml: a 2-D int16 matrix, not "
                          f"{m.shape} {m.dtype}")
-    vals = m.reshape(-1).tolist()
-    lines = [" ".join(str(v) for v in vals[i:i + 13])
-             for i in range(0, len(vals), 13)]
+    lines, line = [], ""
+    for v in map(str, m.reshape(-1).tolist()):
+        if line and 4 + len(line) + len(v) > _XML_WRAP:
+            lines.append(line)
+            line = v
+        else:
+            line = f"{line} {v}" if line else v
+    lines.append(line)
     with open(path, "w") as f:
         f.write('<?xml version="1.0"?>\n<opencv_storage>\n'
                 f'<{name} type_id="opencv-matrix">\n'
                 f"  <rows>{m.shape[0]}</rows>\n  <cols>{m.shape[1]}</cols>\n"
                 "  <dt>s</dt>\n  <data>\n    " + "\n    ".join(lines)
                 + f"</data></{name}>\n</opencv_storage>\n")
+
+
+def connected_components(binary: np.ndarray):
+    """``cv2.connectedComponentsWithStats(binary)`` (8-connectivity):
+    (n labels with the background's, int32 labels, int32 stats rows (x,
+    y, w, h, area)). OpenCV scans in 2x2 blocks (all foreground pixels of
+    one block are 8-connected), so labels follow the raster order of each
+    component's first block, not of its first pixel."""
+    from scipy import ndimage
+
+    fg = np.asarray(binary) != 0
+    h, w = fg.shape
+    lab, n = ndimage.label(fg, structure=np.ones((3, 3), bool))
+    rows, cols = np.nonzero(fg)
+    ids = lab[rows, cols]
+    first = np.full(n + 1, np.iinfo(np.int64).max)
+    np.minimum.at(first, ids, (rows // 2) * ((w + 1) // 2) + cols // 2)
+    remap = np.zeros(n + 1, np.int32)
+    remap[np.argsort(first[1:], kind="stable") + 1] = np.arange(
+        1, n + 1, dtype=np.int32)
+    labels = remap[lab]
+    ids = labels[rows, cols]
+    stats = np.zeros((n + 1, 5), np.int32)
+    x0 = np.full(n + 1, w)
+    y0 = np.full(n + 1, h)
+    x1 = np.full(n + 1, -1)
+    y1 = np.full(n + 1, -1)
+    np.minimum.at(x0, ids, cols)
+    np.minimum.at(y0, ids, rows)
+    np.maximum.at(x1, ids, cols)
+    np.maximum.at(y1, ids, rows)
+    area = np.bincount(ids, minlength=n + 1)
+    stats[1:] = np.stack([x0, y0, x1 - x0 + 1, y1 - y0 + 1, area], 1)[1:]
+    # the background's row, as OpenCV fills it: the bbox of the zeros, or
+    # (-1, INT_MAX, 0, 0, 0) where there are none
+    bg_rows, bg_cols = np.nonzero(~fg)
+    stats[0] = (bg_cols.min(), bg_rows.min(),
+                bg_cols.max() - bg_cols.min() + 1,
+                bg_rows.max() - bg_rows.min() + 1, bg_rows.size) \
+        if bg_rows.size else (-1, np.iinfo(np.int32).max, 0, 0, 0)
+    return n + 1, labels, stats
 
 
 def resize_nearest(src: np.ndarray, dsize: Optional[Tuple[int, int]] = None,

@@ -111,6 +111,39 @@ def test_png_writer_reads_back_in_cv2(tmp_path):
                                   img[..., None], 3, 2))
 
 
+@pytest.mark.parametrize("shape", [(H, W), (5, 1), (1, 9), (375, 1242)],
+                         ids=["small", "one-column", "one-row", "kitti"])
+@pytest.mark.parametrize("channels", [1, 3], ids=["gray", "rgb"])
+def test_png_writer_bytes_equal_cv2_imwrite(tmp_path, shape, channels):
+    """cv2.imwrite's bytes at its defaults (Sub rows, zlib level 1 with
+    the run-length strategy, libpng's window and chunking), from a
+    smooth gradient with noise (KITTI size: several IDAT chunks)."""
+    rng = np.random.default_rng(shape[0] * 7 + channels)
+    h, w = shape
+    grad = np.add.outer(np.arange(h), np.arange(w))[..., None] \
+        + 40 * np.arange(channels)
+    img = ((grad + rng.integers(0, 3, grad.shape)) % 256).astype(np.uint8)
+    img = img[..., 0] if channels == 1 else img
+    mine, theirs = str(tmp_path / "mine.png"), str(tmp_path / "cv2.png")
+    images.write_png(mine, img)
+    assert cv2.imwrite(theirs, img if channels == 1 else img[..., ::-1])
+    assert open(mine, "rb").read() == open(theirs, "rb").read()
+
+
+def test_opencv_xml_bytes_equal_cv2(tmp_path):
+    """cv2.FileStorage's bytes for int16 depth in mm, values of every width
+    (the line breaks fall where cv2 breaks them)."""
+    rng = np.random.default_rng(5)
+    depth = rng.choice([0, 7, 512, 4096, 20000, -3, 32767],
+                       size=(23, 41)).astype(np.int16)
+    mine, theirs = str(tmp_path / "mine.xml"), str(tmp_path / "cv2.xml")
+    images.write_opencv_xml(mine, "depth", depth)
+    fs = cv2.FileStorage(theirs, cv2.FILE_STORAGE_WRITE)
+    fs.write("depth", depth)
+    fs.release()
+    assert open(mine, "rb").read() == open(theirs, "rb").read()
+
+
 def test_png_reader_rejects_what_it_does_not_read(tmp_path):
     path = str(tmp_path / "deep.png")
     cv2.imwrite(path, (np.arange(W * H).reshape(H, W) * 7).astype(np.uint16))

@@ -1,7 +1,8 @@
 """The port imports torch and never jax: ``import dynslam_tpu_torch`` and
-every module of the static, dynamic and staged slices, of the evaluation
-and of the CLI leave no ``jax*`` module, nothing of the JAX package
-``dynslam_tpu`` and no ``cv2`` loaded. Checked in a fresh interpreter,
+every module of the static, dynamic and staged slices, of the evaluation,
+of the CLI, of the learned models and of the parallel paths leave no
+``jax*``, ``flax``, ``optax``, ``msgpack`` or ``cv2`` module and nothing
+of the JAX package ``dynslam_tpu`` loaded. Checked in a fresh interpreter,
 because this test process imports jax (``tests/conftest.py``)."""
 
 import pathlib
@@ -66,6 +67,17 @@ SLICE_MODULES = [
     "dynslam_tpu_torch.eval.error_viz",
     "dynslam_tpu_torch.io.tracklets",
     "dynslam_tpu_torch.eval.tracking_eval",
+    # the learned models and the parallel paths
+    "dynslam_tpu_torch.utils.msgpack",
+    "dynslam_tpu_torch.models.layers",
+    "dynslam_tpu_torch.models.dispnet",
+    "dynslam_tpu_torch.models.segnet",
+    "dynslam_tpu_torch.parallel.launch",
+    "dynslam_tpu_torch.parallel.sharding",
+    "dynslam_tpu_torch.parallel.batch_eval",
+    "dynslam_tpu_torch.entry",
+    "dynslam_tpu_torch.scripts.train_dispnet",
+    "dynslam_tpu_torch.scripts.preprocess_sequence",
 ]
 
 
@@ -75,7 +87,8 @@ def test_slice_modules_import_without_jax():
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'dynslam_tpu', "
-        "'cv2') or k.startswith(('jax.', 'jaxlib', 'flax', 'dynslam_tpu.')))\n"
+        "'cv2', 'msgpack') or k.startswith(('jax.', 'jaxlib', 'flax', "
+        "'optax', 'msgpack.', 'dynslam_tpu.')))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -92,4 +105,5 @@ def test_slice_modules_import_without_jax():
 def test_no_jax_import_in_source(path):
     text = path.read_text()
     assert not re.search(
-        r"^\s*(from|import)\s+(jax|dynslam_tpu)\b(?!_torch)", text, re.M), path
+        r"^\s*(from|import)\s+(jax|flax|optax|msgpack|cv2|dynslam_tpu)\b"
+        r"(?!_torch)", text, re.M), path
