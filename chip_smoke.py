@@ -142,7 +142,31 @@ and never prints its last line):
     ``integrate_many`` call against ``integrate_ref`` map by map, with its
     times.
 
-Phases 3, 4, 7, 9, 12, 14, 15 and 17 also print each kernel's times: the
+18. the port's last scripts and its native readers: (a) every MNC mask,
+    velodyne scan and PNG of phase 13's folder and a ``write_pfm`` file
+    read through the staged readers with the native parsers
+    (``native/fastio.cpp``, built with g++ in phase 2) and with their
+    numpy twins, equal byte for byte; then phase 16a's ``--prefetch``
+    split run with the numpy twins and with the native readers in turns
+    (numpy, native, native, numpy), outputs byte-identical, printing each
+    mode's ``1-read-input``, ``2-segmentation`` and frame total; (b) the
+    static soak (``scripts/soak.py``) at the bench's static configuration
+    over 3 laps of a 20-frame shuttle (10 frames forward along the
+    corridor, 10 back), decay age 10, with the soak's contract (FPS of the
+    last lap within 25% of lap 2's, decay reclaims, no drops with
+    headroom), then K1, the pre-pass and K2 at the last lap's map against
+    their plain versions; (c) the dynamic soak at the same size with the
+    shipped ``InstanceMapParams`` and its contract (slot conservation,
+    slots acquired, new tracks each lap, active tracks bounded), and K1 on
+    its largest routed volume fusion against ``integrate_ref``; (d)
+    ``measure_fallback``'s 6 reps of the oversize full-frame fallback
+    (``fuse_slot_fullframe``) with its host, upload and run times, and its
+    K1 launch against ``integrate_ref``; (e) ``vo_drift`` at its defaults
+    (320x96, f 260, 100 frames) held to its targets (|scale drift| <= 0.3
+    %/frame, RMSE <= 0.5 m) and ``profile_dynamic`` over phase 8's frames,
+    which must see every stage of the dynamic step run.
+
+Phases 3, 4, 7, 9, 12, 14, 15, 17 and 18 also print each kernel's times: the
 bare kernel (its prepared C call alone, no Python conversion between
 launches), warm (50 back-to-back launches between two CUDA events) and
 cold (the L2
@@ -160,8 +184,9 @@ line with an entry per kernel and path (launches on the main path and a
 frame, error, bare/cold/wrapper/parent times, bound and share), and last
 ``{"ok": true, "device": {...}}``.
 
-The frames of both scenes are rendered with the port's numpy renderer in
-one pool of worker processes and cached under ``dynslam_tpu_torch/_build/``.
+The frames (both bench scenes, the soaks' laps and vo_drift's sequence)
+are rendered with the port's numpy renderer in one pool of worker
+processes and cached under ``dynslam_tpu_torch/_build/``.
 """
 
 from __future__ import annotations
@@ -178,18 +203,22 @@ import sys
 import time
 import warnings
 from collections import Counter
-from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = ROOT / "dynslam_tpu_torch"
+sys.path.insert(0, str(ROOT))
 
-W, H = 1242, 375
+from dynslam_tpu_torch.scripts.bench_setup import (  # noqa: E402
+    BUILD_DIR, H, SEED, SPEED, W, bench_config, bench_sets, profile_frames,
+    render_sets,
+)
+
 N_FRAMES = 8
 FPS_FRAMES = 5
+#: bench.py's decay age (200) lowered so that decay runs within 8 frames
 MIN_DECAY_AGE = 4
-SPEED, YAW_RATE, SCENE_ROWS, SEED = 0.8, 0.003, 11, 11
 #: frame (0-based) whose host syncs are counted in sync-debug mode; it
 #: lies before the frames the frame rate is taken over
 CENSUS_FRAME = 2
@@ -199,7 +228,6 @@ N_DYN = 12
 DYN_FPS_FRAMES = range(5, 10)
 DYN_PROFILE_FRAMES = range(10, 12)
 DYN_CENSUS_FRAME = 3
-N_DYNAMIC, RECURRING = 3, 2
 #: the segmentation dump's score, and its size filter (bbox area over 45^2)
 DET_SCORE, DET_MIN_PX = 0.98, 45
 
@@ -229,103 +257,6 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 # configuration and frames
 # ---------------------------------------------------------------------------
-
-
-def bench_config():
-    """The bench's static configuration (bench.py ``bench_config``), with
-    ``min_decay_age`` lowered from 200 to 4 so that decay runs within 8
-    frames."""
-    from dynslam_tpu_torch.config import (
-        DynSlamConfig, Intrinsics, MapParams, SceneParams, StereoCalibration,
-        StereoMatcherParams, VisualOdometryParams, VoxelDecayParams,
-    )
-    return DynSlamConfig(
-        frame_width=W, frame_height=H,
-        intrinsics=Intrinsics(707.0912, 707.0912, W / 2.0, 183.1104),
-        calibration=StereoCalibration(0.537150654273, 707.0912),
-        scene=SceneParams(voxel_size_m=0.05, mu_m=0.30),
-        map=MapParams(pool_capacity=2 ** 17, local_dims=(160, 48, 160),
-                      max_new_blocks_per_frame=8192),
-        stereo=StereoMatcherParams(max_disparity=128),
-        vo=VisualOdometryParams(),
-        decay=VoxelDecayParams(enabled=True, min_decay_age=MIN_DECAY_AGE,
-                               max_decay_weight=1),
-    )
-
-
-def _scene(dynamic: bool):
-    from dynslam_tpu_torch.io import synthetic as syn
-
-    if dynamic:
-        return syn.SyntheticScene.default_scene(
-            with_dynamic=True, seed=SEED, n_dynamic=N_DYNAMIC,
-            n_rows=SCENE_ROWS, recurring_oncoming=RECURRING)
-    return syn.SyntheticScene.default_scene(seed=SEED, n_rows=SCENE_ROWS)
-
-
-def _render_one(args):
-    """One stereo frame of a bench scene: (left u8, right u8, depth, ids of
-    the dynamic boxes (0 elsewhere))."""
-    import numpy as np
-
-    from dynslam_tpu_torch.io import synthetic as syn
-
-    frame, pose, intr, calib, width, height, dynamic = args
-    scene = _scene(dynamic)
-    fr = syn.render_stereo_frame(scene, pose, intr, calib, width, height,
-                                 frame=frame)
-    dyn_ids = [i + 1 for i, b in enumerate(scene.boxes) if b.is_dynamic]
-    objid = np.where(np.isin(fr["object_id"], dyn_ids), fr["object_id"], 0)
-    return (syn.to_uint8_rgb(fr["left_gray"])[..., 0],
-            syn.to_uint8_rgb(fr["right_gray"])[..., 0],
-            fr["depth_m"].astype(np.float32), objid.astype(np.int16))
-
-
-def render_frames(config, sets, cache_dir: Path):
-    """The first frames of the bench scenes (seed 11, 11 building rows,
-    0.8 m and 0.003 rad a frame; ``sets`` lists (n_frames, dynamic)),
-    rendered once in one pool of worker processes and cached. Returns one
-    dict of stacked numpy arrays per set."""
-    import multiprocessing as mp
-
-    import numpy as np
-
-    from dynslam_tpu_torch.io import synthetic as syn
-
-    w, h = config.frame_width, config.frame_height
-    paths, jobs = [], {}
-    for n, dynamic in sets:
-        key = (f"{w}x{h}-n{n}-s{SEED}-r{SCENE_ROWS}-v{SPEED}-y{YAW_RATE}"
-               + (f"-dyn{N_DYNAMIC}-rec{RECURRING}" if dynamic else ""))
-        paths.append(cache_dir / f"smoke_frames-{key}.npz")
-        if not paths[-1].exists():
-            poses = syn.straight_trajectory(n, speed=SPEED,
-                                            yaw_rate=YAW_RATE)
-            jobs[len(paths) - 1] = (poses, [
-                (f, poses[f], config.intrinsics, config.calibration, w, h,
-                 dynamic) for f in range(n)])
-    if jobs:
-        flat = [j for _, js in jobs.values() for j in js]
-        workers = max(1, min(len(flat), os.cpu_count() or 1))
-        with ProcessPoolExecutor(
-                workers, mp_context=mp.get_context("spawn")) as ex:
-            out = list(ex.map(_render_one, flat))
-        cache_dir.mkdir(parents=True, exist_ok=True)
-        for i, (poses, js) in jobs.items():
-            part, out = out[:len(js)], out[len(js):]
-            frames = dict(left=np.stack([o[0] for o in part]),
-                          right=np.stack([o[1] for o in part]),
-                          depth=np.stack([o[2] for o in part]),
-                          objid=np.stack([o[3] for o in part]),
-                          poses=poses.astype(np.float32))
-            tmp = paths[i].with_name(f"{paths[i].stem}.{os.getpid()}.tmp.npz")
-            np.savez(tmp, **frames)
-            os.replace(tmp, paths[i])
-    result = []
-    for path in paths:
-        with np.load(path) as z:
-            result.append(dict(z))
-    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1021,97 +952,9 @@ def check_slice(res, n_frames: int, config) -> dict:
                 ms=[r["ms"] for r in tail])
 
 
-def _busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    busy, end = 0.0, float("-inf")
-    for s0, s1 in sorted(intervals):
-        if s1 > end:
-            busy += s1 - max(s0, end)
-            end = s1
-    return busy
-
-
-STAGE_PREFIXES = ("fused_step.", "fused_dyn.", "fused_eval.", "render.")
-
-
-def summarize_trace(events, n: int) -> dict:
-    """From a chrome trace of ``n`` frames: per stage (the
-    ``fused_step.*`` and ``fused_dyn.*`` ranges; the dynamic step's
-    ``fused_dyn.static`` holds the static step's allocate, integrate,
-    raycast and decay ranges) [host ms, device kernel ms, kernel launches,
-    memsets] a frame, the device's busy and spanned time (us) and the
-    kernel and memset counts (the raycast's bitmap and header clears are
-    memsets)."""
-    device = [(e["ts"], e["ts"] + e["dur"]) for e in events
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    kernels = sorted((e["ts"], e["dur"]) for e in events
-                     if e.get("cat") == "kernel")
-    memsets = sorted(e["ts"] for e in events if e.get("cat") == "gpu_memset")
-    if not kernels:
-        raise AssertionError("the profiler recorded no kernel")
-    stages = {}
-    for e in events:
-        name = e.get("name", "")
-        if not name.startswith(STAGE_PREFIXES):
-            continue
-        st = stages.setdefault(name, [0.0, 0.0, 0.0, 0.0])
-        if e.get("cat") == "user_annotation":
-            st[0] += e["dur"] / 1e3 / n
-        elif e.get("cat") == "gpu_user_annotation":
-            t0, t1 = e["ts"], e["ts"] + e["dur"]
-            inside = [d for t, d in kernels if t0 <= t < t1]
-            st[1] += sum(inside) / 1e3 / n
-            st[2] += len(inside) / n
-            st[3] += sum(t0 <= t < t1 for t in memsets) / n
-    span = max(t1 for _, t1 in device) - min(t0 for t0, _ in device)
-    return dict(stages=stages, busy=_busy_us(device), span=span,
-                kernels=len(kernels), memsets=len(memsets))
-
-
-def profile_frames(run_frames, n: int, out_dir: Path, tag: str = "profile",
-                   name: str = "profile_trace.json") -> dict:
-    """torch.profiler over ``run_frames()``, which runs ``n`` frames;
-    prints ``summarize_trace``'s table and writes the chrome trace to
-    ``out_dir``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    out_dir.mkdir(parents=True, exist_ok=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_frames()
-        torch.cuda.synchronize()
-    trace = out_dir / name
-    prof.export_chrome_trace(str(trace))
-    summary = summarize_trace(json.loads(trace.read_text())["traceEvents"], n)
-    for stage, (host, dev, launches, sets) in sorted(
-            summary["stages"].items(), key=lambda kv: -kv[1][0]):
-        say(tag, f"{stage:22s} host {host:8.2f} ms, device kernels "
-                 f"{dev:7.2f} ms, {launches:6.0f} launches and {sets:3.0f} "
-                 "memsets a frame")
-    busy, span = summary["busy"], summary["span"]
-    say(tag, f"{n} frames under torch.profiler: device busy "
-             f"{busy / 1e3:.2f} of {span / 1e3:.2f} ms (idle share "
-             f"{1.0 - busy / span:.3f}), {summary['kernels'] / n:.0f} "
-             f"launches and {summary['memsets'] / n:.0f} memsets a frame; "
-             f"trace in {trace}")
-    return summary
-
-
 # ---------------------------------------------------------------------------
 # phases 8, 7 and 9: the dynamic slice and the kernels on its inputs
 # ---------------------------------------------------------------------------
-
-
-def bench_dynamic_config():
-    """bench.py ``bench_config(dynamic=True)``: the static configuration
-    with the shipped ``InstanceMapParams`` (8 object volumes, 16 mask
-    slots, 256x512 fusion crops), ``min_decay_age`` 4 as in phase 5."""
-    from dynslam_tpu_torch.config import InstanceMapParams
-
-    return dataclasses.replace(bench_config(), dynamic_mode=True,
-                               instance_map=InstanceMapParams())
 
 
 def frame_detections(objid):
@@ -2795,24 +2638,326 @@ def run_phase17(config, dconfig, frames, dyn_frames, device, flush,
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the native readers, the soaks, the oversize fallback, the VO
+# gauge and the dynamic step's profile
+# ---------------------------------------------------------------------------
+
+#: the soaks' lap (a shuttle: 10 frames forward along the corridor, 10
+#: back), their laps (the FPS check compares lap 2 with the last) and the
+#: decay age (the decay-gate recipe's 200 lowered so that decay runs)
+SOAK_LAP, SOAK_LAPS, SOAK_DECAY_AGE = 20, 3, 10
+#: vo_drift at its defaults: frames, size, focal length, speed, yaw
+VO_FRAMES, VO_W, VO_H, VO_F, VO_SPEED, VO_YAW = 100, 320, 96, 260.0, 0.5, \
+    0.002
+#: 18a's split runs, numpy twins and native readers in turns
+READER_TURNS = ("numpy", "native", "native", "numpy")
+FALLBACK_REPS, PROFILE_WARMUP = 6, 3
+
+
+@contextlib.contextmanager
+def reader_mode(mode: str):
+    """The staged readers' parsers within the block: ``native`` or the
+    numpy twins (``DYNSLAM_NO_NATIVE_BUILD`` set)."""
+    from dynslam_tpu_torch import native
+
+    old = os.environ.pop(native.SWITCH, None)
+    if mode == "numpy":
+        os.environ[native.SWITCH] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(native.SWITCH, None)
+        if old is not None:
+            os.environ[native.SWITCH] = old
+
+
+def check_native_reads(seq: Path, depth) -> dict:
+    """18a: every MNC mask, velodyne scan and PNG of phase 13's folder, and
+    a PFM of ``depth`` written by ``write_pfm``, read through the staged
+    readers with the native parsers and with their numpy twins: the
+    arrays must be equal (dtype, shape and bytes). Returns the files read
+    and each side's seconds."""
+    from dynslam_tpu_torch.io import images
+    from dynslam_tpu_torch.io.segmentation import (
+        PrecomputedSegmentationProvider,
+    )
+    from dynslam_tpu_torch.io.velodyne import VelodyneIO
+    from dynslam_tpu_torch.utils import pfm
+
+    reads = []
+    for res in sorted((seq / "seg_image_2" / "mnc").glob("*.result.txt")):
+        x0, y0, x1, y1 = (int(float(v)) for v in res.read_text().split(
+            "]")[0].strip("[").split()[:4])
+        path = str(res).replace(".result.txt", ".mask.txt")
+        reads.append(("mask", lambda p=path, w=x1 - x0 + 1, h=y1 - y0 + 1:
+                      PrecomputedSegmentationProvider._read_mask(p, w, h)))
+    lidar = VelodyneIO(str(seq / "velodyne"))
+    for i in range(len(list((seq / "velodyne").glob("*.bin")))):
+        reads.append(("velodyne", lambda i=i: lidar.read_frame(i)))
+    for png in sorted(seq.glob("image_[23]/*.png")):
+        reads.append(("png", lambda p=str(png): images.read_png(p)))
+    pfm_path = str(seq.parent / "check.pfm")
+    pfm.write_pfm(pfm_path, depth)
+    reads.append(("pfm", lambda: pfm.read_pfm(pfm_path)))
+    got, seconds = {}, {}
+    for mode in ("numpy", "native"):
+        with reader_mode(mode):
+            t0 = time.perf_counter()
+            got[mode] = [fn() for _, fn in reads]
+            seconds[mode] = time.perf_counter() - t0
+    for (kind, _), a, b in zip(reads, got["native"], got["numpy"]):
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or a.tobytes() != b.tobytes():
+            raise AssertionError(f"native {kind} read differs from its "
+                                 f"numpy twin: {a.shape} {a.dtype} / "
+                                 f"{b.shape} {b.dtype}")
+    return dict(counts=Counter(k for k, _ in reads), seconds=seconds)
+
+
+def check_reader_runs(base, sdir: Path) -> dict:
+    """18a: phase 16a's ``--prefetch`` split run with the numpy twins and
+    with the native readers, in turns (``READER_TURNS``): the trajectory
+    and CSVs byte for byte equal; each mode's mean ``1-read-input``,
+    ``2-segmentation`` and frame total (ms a frame over the turns)."""
+    import filecmp
+
+    stages = ("1-read-input", "2-segmentation", "0-total-frame")
+    ms = {m: {k: [] for k in stages} for m in set(READER_TURNS)}
+    outs = []
+    for turn, mode in enumerate(READER_TURNS):
+        out = sdir / f"out_readers_{turn}"
+        with reader_mode(mode):
+            p = run_cli(base + ["--out", out, "--frame_limit", STAGED_SPLIT,
+                                "--enable_evaluation", "--prefetch"])
+        for k in stages:
+            ms[mode][k].append(p.dyn._timers.mean_ms(k))
+        outs.append(out)
+    files = ["trajectory.txt"] + [f"csv/{n}" for n in
+                                  sorted(os.listdir(outs[0] / "csv"))]
+    differ = [(t, f) for t, o in enumerate(outs[1:], 1) for f in files
+              if not filecmp.cmp(outs[0] / f, o / f, shallow=False)]
+    if differ:
+        raise AssertionError(f"reader runs differ from turn 0: {differ}")
+    return dict(files=files, ms={m: {k: statistics.mean(v)
+                                     for k, v in d.items()}
+                                 for m, d in ms.items()})
+
+
+def soak_scene(cfg, pipe, loop, k: int) -> dict:
+    """The static soak's map at its last frame (the lap's frame ``k``),
+    as ``map_scene`` gives a map: state, a grid rebuilt for the window,
+    the visible blocks of the last pose, that frame's colour and stereo
+    depth."""
+    import torch
+
+    from dynslam_tpu_torch.ops import tsdf
+    from dynslam_tpu_torch.utils.se3 import inverse
+
+    c = pipe.carry
+    grid = tsdf.build_local_grid(cfg, c.state, c.origin)
+    slots, mask = tsdf.visible_blocks(cfg, c.state, grid, c.origin,
+                                      c.pose_w2c)
+    gray = torch.tensor(loop["left"][k], device=c.state.device)
+    rgb = gray[..., None].expand(*gray.shape, 3).contiguous()
+    return dict(state=c.state, grid=grid, origin=c.origin, slots=slots,
+                mask=mask, rgb=rgb, depth=pipe.last_outputs.depth_m,
+                w2c=c.pose_w2c, c2w=inverse(c.pose_w2c),
+                frame=c.frame_idx)
+
+
+def run_soaks(s_loop, d_loop, device, flush) -> dict:
+    """18b and 18c: the static and dynamic soaks (``scripts/soak.py``) at
+    1242x375 over ``SOAK_LAPS`` laps, their contracts, and the kernels at
+    the static soak's last map and on the dynamic soak's largest routed
+    volume fusion against their plain versions."""
+    from dynslam_tpu_torch.config import InstanceMapParams
+    from dynslam_tpu_torch.pipeline import fused_dynamic
+    from dynslam_tpu_torch.pipeline.builder import engine_config_from
+    from dynslam_tpu_torch.scripts import soak
+
+    n = SOAK_LAP * SOAK_LAPS
+
+    def log(msg):
+        say("soak", msg.removeprefix("[soak] "))
+
+    scfg = soak.soak_config(W, H, False, min_decay_age=SOAK_DECAY_AGE)
+    reset_launches()
+    res = soak.run_static(scfg, s_loop, n, device, seed=SEED, log=log)
+    launches = launch_counts()
+    msgs = soak.check_static(scfg, res, n, SOAK_LAP)
+    if msgs:
+        raise AssertionError(f"static soak: {msgs}")
+    cfg = engine_config_from(scfg)
+    scene = soak_scene(cfg, res["pipe"], s_loop, (n - 1) % SOAK_LAP)
+    k1 = check_integrate(cfg, scene, flush)
+    # the plain march takes ~10 s at this map: one timed call
+    k2 = check_raycast(cfg, scene, flush, plain_reps=1)
+    static = dict(laps=res["laps"], launches=launches, k1=k1, k2=k2,
+                  fused=n - 1)
+    del res, scene
+
+    dcfg = soak.soak_config(W, H, True, min_decay_age=SOAK_DECAY_AGE,
+                            instance_map=InstanceMapParams())
+    recorder = FusionRecorder(fused_dynamic.integrate_many)
+    fused_dynamic.integrate_many = recorder
+    reset_launches()
+    try:
+        dres = soak.run_dynamic(dcfg, d_loop, n, device, seed=SEED, log=log)
+    finally:
+        fused_dynamic.integrate_many = recorder.fn
+    dlaunches = launch_counts()
+    msgs = soak.check_dynamic(dcfg, dres, SOAK_LAP)
+    if msgs:
+        raise AssertionError(f"dynamic soak: {msgs}")
+    k1v = check_integrate_many(recorder.best, flush)
+    return dict(static=static, dynamic=dict(
+        laps=dres["laps"], launches=dlaunches, volume_calls=recorder.calls,
+        k1=k1v, free=dres["free_series"], S=dres["pipe"].S,
+        dispatches=dres["pipe"].current_frame_no - 1))
+
+
+def run_fallback(device, flush) -> dict:
+    """18d: ``measure_fallback``'s reps at bench.py's dynamic
+    configuration; K1 of the call over the last rep's slot against
+    ``integrate_ref``."""
+    from dynslam_tpu_torch.pipeline import fused_dynamic
+    from dynslam_tpu_torch.scripts import measure_fallback
+
+    recorder = FusionRecorder(fused_dynamic.integrate_many)
+    fused_dynamic.integrate_many = recorder
+    reset_launches()
+    try:
+        res = measure_fallback.measure(
+            bench_config(True), FALLBACK_REPS, device,
+            log=lambda m: say("fallback", m.removeprefix("[measure] ")))
+    finally:
+        fused_dynamic.integrate_many = recorder.fn
+    launches = launch_counts()["integrate"]
+    if launches != FALLBACK_REPS or recorder.calls != FALLBACK_REPS:
+        raise AssertionError(f"fallback: {launches} K1 launches in "
+                             f"{FALLBACK_REPS} reps")
+    return dict(times=res["times"], launches=launches,
+                k1=check_integrate_many(recorder.best, flush))
+
+
+def run_phase18(base, sdir: Path, dyn_frames, s_loop, d_loop, vo_seq,
+                device, flush) -> dict:
+    """Phase 18 (see the module docstring); returns what the kernels line
+    reports."""
+    from dynslam_tpu_torch.native import build as native_build
+    from dynslam_tpu_torch.scripts import profile_dynamic, vo_drift
+
+    # 18a. the native readers
+    t0 = time.perf_counter()
+    reads = check_native_reads(sdir / "seq", dyn_frames["depth"][0])
+    say("native", f"{dict(reads['counts'])} files of phase 13's folder and "
+                  f"a write_pfm file: native parsers equal to their numpy "
+                  f"twins byte for byte; {reads['seconds']['native']:.3f} s "
+                  f"native, {reads['seconds']['numpy']:.3f} s numpy")
+    rr = check_reader_runs(base, sdir)
+    for mode, m in sorted(rr["ms"].items()):
+        say("native", f"--prefetch split run, {mode} readers (mean of "
+                      f"{READER_TURNS.count(mode)} turns of "
+                      f"{READER_TURNS}): 1-read-input "
+                      f"{m['1-read-input']:.2f} ms, 2-segmentation "
+                      f"{m['2-segmentation']:.2f} ms, frame total "
+                      f"{m['0-total-frame']:.2f} ms")
+    say("native", f"{', '.join(rr['files'])} byte-identical across the "
+                  f"turns; 18a in {time.perf_counter() - t0:.1f} s; library "
+                  f"{native_build.library_path().name}")
+
+    # 18b and 18c. the soaks
+    t0 = time.perf_counter()
+    soaks = run_soaks(s_loop, d_loop, device, flush)
+    st, dy = soaks["static"], soaks["dynamic"]
+    say("soak", f"static: launches {st['launches']} over {st['fused']} fused"
+                f" frames; FPS by lap "
+                f"{[round(x['fps'], 2) for x in st['laps']]}, used blocks "
+                f"{[x['used'] for x in st['laps']]}, visible "
+                f"{[x['visible'] for x in st['laps']]}, decayed "
+                f"{[x['decayed'] for x in st['laps']]}, host syncs a frame "
+                f"{[round(x['syncs'], 2) for x in st['laps']]}; the soak's "
+                f"contract holds")
+    for tag, r in (("K1-soak", st["k1"]), ("K2-soak-pre", st["k2"]["pre"]),
+                   ("K2-soak", st["k2"])):
+        say(tag, timing_text(r))
+    say("K1-soak", f"at the last lap's map: {st['k1']['blocks']} visible "
+                   f"blocks, {st['k1']['exact'] * 100:.4f}% words bit-exact;"
+                   f" K2 hit agreement {st['k2']['agree'] * 100:.4f}%, "
+                   f"pre-pass bitmap equal ({st['k2']['pre']['n_cand']} "
+                   f"candidate cells)")
+    say("soak", f"dynamic: launches {dy['launches']} over "
+                f"{dy['dispatches']} dispatches ({dy['volume_calls']} with "
+                f"routed volumes); FPS by lap "
+                f"{[round(x['fps'], 2) for x in dy['laps']]}, live objects "
+                f"{[x['live_objects'] for x in dy['laps']]}, tracks ever "
+                f"{[x['tracks_created'] for x in dy['laps']]}, active "
+                f"{[x['active_tracks'] for x in dy['laps']]}, fewest free "
+                f"slots {min(dy['free'])}/{dy['S']}, host syncs a frame "
+                f"{[round(x['syncs'], 2) for x in dy['laps']]}; the "
+                f"dynamic contract holds; 18b-c in "
+                f"{time.perf_counter() - t0:.1f} s")
+    say("K1-soak-vol", f"integrate_many over {len(dy['k1']['vols'])} "
+                       f"volumes ({dy['k1']['blocks']} blocks): "
+                       f"{dy['k1']['exact'] * 100:.4f}% words bit-exact; "
+                       + timing_text(dy["k1"]))
+
+    # 18d. the oversize fallback
+    fb = run_fallback(device, flush)
+    med = {k: statistics.median(t[k] for t in fb["times"][1:])
+           for k in ("host_ms", "upload_ms", "run_ms")}
+    say("fallback", f"{FALLBACK_REPS} reps of fuse_slot_fullframe (median "
+                    f"of reps 1-{FALLBACK_REPS - 1}): host prep "
+                    f"{med['host_ms']:.2f} ms, upload {med['upload_ms']:.2f} "
+                    f"ms, dispatch+run {med['run_ms']:.2f} ms; K1 "
+                    f"{fb['k1']['exact'] * 100:.4f}% words bit-exact on "
+                    f"{fb['k1']['blocks']} blocks; " + timing_text(fb["k1"]))
+
+    # 18e. the VO gauge and the dynamic step's profile
+    t0 = time.perf_counter()
+    vo = vo_drift.drift(vo_seq, VO_W, VO_H, VO_F, device)
+    if not (abs(vo["drift_pct"]) <= vo_drift.MAX_DRIFT_PCT
+            and vo["rmse"] <= vo_drift.MAX_RMSE_M):
+        raise AssertionError(f"vo_drift: {vo}")
+    say("vo", f"vo_drift, {vo['frames']} frames {VO_W}x{VO_H} f {VO_F}: "
+              f"median scale drift {vo['drift_pct']:+.3f} %/frame (need "
+              f"|.| <= {vo_drift.MAX_DRIFT_PCT}), RMSE {vo['rmse']:.3f} m "
+              f"(need <= {vo_drift.MAX_RMSE_M}), final error "
+              f"{vo['final_err']:.3f} m over {vo['path']:.1f} m, in "
+              f"{time.perf_counter() - t0:.1f} s")
+    dconfig = bench_config(True, min_decay_age=MIN_DECAY_AGE)
+    prof = profile_dynamic.profile(
+        dconfig, dyn_frames["left"], dyn_frames["right"],
+        [frame_detections(o) for o in dyn_frames["objid"]], PROFILE_WARMUP,
+        BUILD_DIR / "profile_dynamic", device, tag="profile_dynamic")
+    say("profile_dynamic", f"every stage of {profile_dynamic.STAGES} ran "
+                           f"over frames {PROFILE_WARMUP + 1}-{N_DYN - 1}")
+    return dict(soaks=soaks, fallback=fb, vo=vo, profile=prof)
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_kernels(parent: Optional[Path]) -> dict:
-    """Phase 2: every kernel source with nvcc, one process each, all
-    started together; with ``parent`` (a checkout of the parent commit)
-    also the parent's two kernels. Checks that this tree's libraries have
-    its C ABI. Returns the parent's library paths (empty without
-    ``parent``)."""
+    """Phase 2: every kernel source with nvcc, one process each, and the
+    native readers (``native/fastio.cpp``) with g++, all started
+    together; with ``parent`` (a checkout of the parent commit) also the
+    parent's two kernels. Checks that this tree's libraries have its C
+    ABI. Returns the parent's library paths (empty without ``parent``)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from dynslam_tpu_torch.native import build as native_build
     from dynslam_tpu_torch.ops import cuda_build
 
     jobs = [(name, "", cuda_build.CSRC_DIR) for name in KERNEL_SOURCES]
     if parent is not None:
         jobs += [(name, "parent ", parent / "dynslam_tpu_torch" / "csrc")
                  for name in KERNEL_SOURCES]
-    with ThreadPoolExecutor(len(jobs)) as ex:
+    with ThreadPoolExecutor(len(jobs) + 1) as ex:
+        native = ex.submit(native_build.build)
         built = list(ex.map(lambda j: cuda_build.build(j[0], j[2]), jobs))
+        path, seconds = native.result()
+    say("build", f"native readers (g++): {seconds:.2f} s -> {path.name}")
     libs = {}
     for (name, tag, _), b in zip(jobs, built):
         regs = [ln.split("ptxas info    : ")[-1] for ln in b.log.splitlines()
@@ -2865,7 +3010,6 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {PACKAGE} not found; run from a checkout of "
               "the repository", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -2882,14 +3026,27 @@ def main(argv=None) -> int:
     parent = build_kernels(args.parent)
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=device)
 
-    config = bench_config()
+    config = bench_config(False, min_decay_age=MIN_DECAY_AGE)
     cfg = engine_config_from(config)
+    # every frame the script drives, rendered in one pool: the bench
+    # scenes, the soaks' laps (phase 18b-c) and vo_drift's gauge (18e)
+    from dynslam_tpu_torch.scripts import soak, vo_drift
+
     t0 = time.perf_counter()
-    frames, dyn_frames = render_frames(
-        config, [(N_FRAMES, False), (N_DYN, True)], cuda_build.BUILD_DIR)
+    s_set, s_idx = soak.loop_set(SOAK_LAP, W, H, False, "shuttle")
+    d_set, d_idx = soak.loop_set(SOAK_LAP, W, H, True, "shuttle")
+    frames, dyn_frames, s_loop, d_loop, vo_seq = render_sets(
+        bench_sets(config, [(N_FRAMES, False), (N_DYN, True)])
+        + [s_set, d_set, vo_drift.sequence_set(VO_FRAMES, VO_W, VO_H, VO_F,
+                                               VO_SPEED, VO_YAW)],
+        BUILD_DIR)
+    s_loop, d_loop = soak.lap_frames(s_loop, s_idx), \
+        soak.lap_frames(d_loop, d_idx)
     say("frames", f"{N_FRAMES} static and {N_DYN} dynamic frames {W}x{H} "
-                  f"(bench scenes, seed {SEED}) in "
-                  f"{time.perf_counter() - t0:.1f} s")
+                  f"(bench scenes, seed {SEED}), the soaks' {SOAK_LAP}-frame"
+                  f" laps ({len(s_set.poses)} and {len(d_set.poses)} "
+                  f"renders) and {VO_FRAMES} vo_drift frames {VO_W}x{VO_H} "
+                  f"in {time.perf_counter() - t0:.1f} s")
 
     # 3. K1 vs plain
     scene = map_scene(cfg, frames, device)
@@ -2955,7 +3112,7 @@ def main(argv=None) -> int:
     del res, scene
 
     # 8. the dynamic slice (its routed fusions feed phase 7)
-    dconfig = bench_dynamic_config()
+    dconfig = bench_config(True, min_decay_age=MIN_DECAY_AGE)
     say("dyn", f"build_fused_dynamic, bench dynamic config (K "
                f"{dconfig.instance_map.max_detections}, S "
                f"{dconfig.instance_map.max_objects}, crop "
@@ -3261,6 +3418,11 @@ def main(argv=None) -> int:
     p17 = run_phase17(config, dconfig, frames, dyn_frames, device, flush,
                       parent)
 
+    # 18. the native readers, the soaks, the oversize fallback, the VO
+    # gauge and the dynamic step's profile
+    p18 = run_phase18(base, sdir, dyn_frames, s_loop, d_loop, vo_seq,
+                      device, flush)
+
     k1_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/integrate.cu",
                   replaces="dynslam_tpu/ops/pallas_integrate.py:536")
     k2_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/raycast.cu",
@@ -3352,10 +3514,32 @@ def main(argv=None) -> int:
     kernels.append(kernel_entry("integrate/sequence-maps", k1_src,
                                 p17["launches"], p17["launches"] / BE_FRAMES,
                                 p17["k1s"]))
+    # phase 18's soaks (the static soak's launches with the times at its
+    # last map; the dynamic soak's volume fusions with its largest one's)
+    # and the oversize fallback's reps
+    st, dy = p18["soaks"]["static"], p18["soaks"]["dynamic"]
+    fb = p18["fallback"]
+    kernels += [
+        kernel_entry("integrate/soak-static", k1_src,
+                     st["launches"]["integrate"],
+                     st["launches"]["integrate"] / st["fused"], st["k1"]),
+        kernel_entry("raycast/candidates-soak-static", k2_src,
+                     st["launches"]["candidates"],
+                     st["launches"]["candidates"] / st["fused"],
+                     st["k2"]["pre"]),
+        kernel_entry("raycast/soak-static", k2_src,
+                     st["launches"]["raycast"],
+                     st["launches"]["raycast"] / st["fused"], st["k2"]),
+        kernel_entry("integrate/soak-dynamic-volumes", k1_src,
+                     dy["volume_calls"],
+                     dy["volume_calls"] / dy["dispatches"], dy["k1"]),
+        kernel_entry("integrate/oversize-fallback", k1_src, fb["launches"],
+                     1.0, fb["k1"]),
+    ]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"paths whose kernel never launched: {idle}")
-    say("done", f"phases 1-17 in {time.perf_counter() - t_start:.1f} s")
+    say("done", f"phases 1-18 in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

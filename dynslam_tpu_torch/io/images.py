@@ -5,7 +5,11 @@ has no ``cv2``).
 - ``read_png``: ``cv2.imread(path, IMREAD_COLOR)`` as RGB, for
   non-interlaced 8-bit gray, RGB and RGBA files (gray is expanded to
   three channels and alpha dropped, as OpenCV does); any other PNG raises.
-  All five row filters are undone (``_unfilter``).
+  All five row filters are undone, by ``native/fastio.cpp``
+  (``fastio.png_unfilter``) or, under ``DYNSLAM_NO_NATIVE_BUILD``, by its
+  numpy twin ``_unfilter``.
+- ``read_png_gray``: ``cv2.imread(path, IMREAD_GRAYSCALE)``: libpng's
+  ``png_set_rgb_to_gray(0.299, 0.587)`` on colour files, which truncates.
 - ``png_size``: (width, height) from the IHDR chunk alone.
 - ``write_png``: 8-bit gray or RGB, the bytes ``cv2.imwrite`` writes
   (libpng's Sub filter, zlib level 1 run-length, 8 KiB IDAT chunks).
@@ -16,6 +20,11 @@ has no ``cv2``).
 - ``resize_nearest``: ``cv2.resize(..., interpolation=INTER_NEAREST)``:
   source index ``min(floor(x / scale), src - 1)`` in double precision,
   OpenCV's ``resizeNN`` rule.
+- ``resize_area``: ``cv2.resize(..., interpolation=INTER_AREA)`` for
+  shrinking uint8 images: OpenCV's ``resizeAreaFast`` at integer factors
+  (2x2 blocks as ``(sum + 2) >> 2``), its float32 area tables otherwise.
+- ``bgr_to_gray``: ``cv2.cvtColor(..., COLOR_BGR2GRAY)`` on uint8,
+  OpenCV's 15-bit fixed-point weights.
 - ``connected_components``: ``cv2.connectedComponentsWithStats`` at
   8-connectivity, label for label (``scipy.ndimage.label``, relabelled in
   OpenCV's 2x2-block scan order).
@@ -26,12 +35,16 @@ components) holds each to ``cv2`` byte for byte.
 
 from __future__ import annotations
 
+import math
 import struct
 import xml.etree.ElementTree as ET
 import zlib
 from typing import Optional, Tuple
 
 import numpy as np
+
+from dynslam_tpu_torch import native
+from dynslam_tpu_torch.native import fastio
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 #: PNG colour type -> channels, for the 8-bit types read here
@@ -123,7 +136,9 @@ def read_png(path: str) -> np.ndarray:
     if rows.size != h * (1 + w * bpp):
         raise ValueError(f"{path!r}: truncated PNG data")
     rows = rows.reshape(h, 1 + w * bpp)
-    img = _unfilter(rows[:, 1:].reshape(h, w, bpp), rows[:, 0])
+    raw = rows[:, 1:].reshape(h, w, bpp)
+    img = fastio.png_unfilter(raw, rows[:, 0]) \
+        if native.mode() == "native" else _unfilter(raw, rows[:, 0])
     if bpp == 1:
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
@@ -326,3 +341,135 @@ def resize_nearest(src: np.ndarray, dsize: Optional[Tuple[int, int]] = None,
     ys = np.minimum(np.floor(np.arange(dh) * (1.0 / fy)).astype(np.int64),
                     h - 1)
     return np.ascontiguousarray(src[ys[:, None], xs[None, :]])
+
+
+def read_png_gray(path: str) -> np.ndarray:
+    """An 8-bit PNG as (H, W) uint8 gray: ``cv2.imread(path,
+    IMREAD_GRAYSCALE)``. OpenCV asks libpng for ``png_set_rgb_to_gray(1,
+    0.299, 0.587)``, whose 15-bit weights (9797, 19234, 3737) truncate;
+    a gray file comes back as it is."""
+    rgb = read_png(path).astype(np.int32)
+    return ((9797 * rgb[..., 0] + 19234 * rgb[..., 1] + 3737 * rgb[..., 2])
+            >> 15).astype(np.uint8)
+
+
+def bgr_to_gray(image: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(image, cv2.COLOR_BGR2GRAY)`` for (H, W, 3) uint8 in
+    BGR order: OpenCV's 15-bit fixed-point weights (B 3735, G 19235, R
+    9798), rounded."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"bgr_to_gray: (H, W, 3) uint8, not {img.shape} "
+                         f"{img.dtype}")
+    b, g, r = (img[..., k].astype(np.int32) for k in range(3))
+    return ((3735 * b + 19235 * g + 9798 * r + (1 << 14)) >> 15).astype(
+        np.uint8)
+
+
+def _area_fast(img: np.ndarray, dh: int, dw: int, sx: int, sy: int):
+    """OpenCV's ``resizeAreaFast_`` at integer factors (sx, sy): a whole
+    block averages as ``(sum + 2) >> 2`` at 2x2 (the vector path, 1, 3
+    or 4 channels) and as ``sum * (1.f / area)`` rounded otherwise; a
+    block cut by the image's right or bottom edge as ``(float)sum /
+    count`` over its pixels inside, rounded."""
+    h, w, cn = img.shape
+    hh, ww = dh * sy, dw * sx
+    pad = np.zeros((max(hh, h), max(ww, w), cn), np.int64)
+    pad[:h, :w] = img
+    inside = np.zeros(pad.shape[:2], np.int64)
+    inside[:h, :w] = 1
+    s = pad[:hh, :ww].reshape(dh, sy, dw, sx, cn).sum((1, 3))
+    n = inside[:hh, :ww].reshape(dh, sy, dw, sx).sum((1, 3))[..., None]
+    if (sx, sy) == (2, 2) and cn in (1, 3, 4):
+        whole = (s + 2) >> 2
+    else:
+        whole = np.rint(s.astype(np.float32)
+                        * (np.float32(1) / np.float32(sx * sy)))
+    cut = np.rint(s.astype(np.float32) / np.maximum(n, 1).astype(np.float32))
+    cut = np.where(n > 0, cut, 0)
+    full = np.zeros((dh, dw, 1), bool)
+    full[:h // sy, :w // sx] = True
+    return np.clip(np.where(full, whole, cut), 0, 255).astype(np.uint8)
+
+
+def _area_table(src: int, dst: int, scale: float):
+    """OpenCV's ``computeResizeAreaTab``: (destination index, source
+    index, float32 weight) of every tap, in OpenCV's order."""
+    tab = []
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, src - f1)
+        s2 = min(math.floor(f2), src - 1)
+        s1 = min(math.ceil(f1), s2)
+        if s1 - f1 > 1e-3:
+            tab.append((d, s1 - 1, np.float32((s1 - f1) / cell)))
+        tab += [(d, s, np.float32(1.0 / cell)) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            tab.append((d, s2, np.float32(min(min(f2 - s2, 1.0), cell)
+                                          / cell)))
+    return tab
+
+
+def _weighted_rows(tab, n: int, rows, src_axis_rows):
+    """out[d] = sum over d's taps, in table order, of weight * row(src),
+    in float32 with one rounding per product and per sum (OpenCV's
+    ``ResizeArea_Invoker`` loop): ``rows(src_indices)`` gives the rows."""
+    pos, seen = [], {}
+    for d, _, _ in tab:
+        pos.append(seen.get(d, 0))
+        seen[d] = pos[-1] + 1
+    out = None
+    for p in range(max(pos) + 1):
+        sel = [t for t, q in zip(tab, pos) if q == p]
+        d = np.asarray([t[0] for t in sel])
+        s = np.asarray([t[1] for t in sel])
+        a = np.asarray([t[2] for t in sel], np.float32)
+        term = src_axis_rows(s) * a.reshape((-1,) + (1,) * (rows - 1))
+        if out is None:
+            out = np.zeros((n,) + term.shape[1:], np.float32)
+            out[d] = term
+        else:
+            out[d] = out[d] + term
+    return out
+
+
+def resize_area(src: np.ndarray, dsize: Optional[Tuple[int, int]] = None,
+                fx: float = 0.0, fy: float = 0.0) -> np.ndarray:
+    """``cv2.resize(src, dsize, fx=fx, fy=fy, interpolation=INTER_AREA)``
+    for shrinking (H, W) or (H, W, C) uint8: ``dsize`` (width, height), or
+    None to scale by (fx, fy) with the size rounded half to even. Integer
+    factors take OpenCV's block-average path (``_area_fast``), others
+    its area tables, accumulated in float32 in OpenCV's order and rounded
+    half to even."""
+    src = np.asarray(src)
+    if src.dtype != np.uint8 or src.ndim not in (2, 3):
+        raise ValueError(f"resize_area: (H, W[, C]) uint8, not {src.shape} "
+                         f"{src.dtype}")
+    h, w = src.shape[:2]
+    if dsize is None:
+        if fx <= 0 or fy <= 0:
+            raise ValueError("resize_area: dsize or positive fx, fy")
+        dw, dh = int(round(w * fx)), int(round(h * fy))
+    else:
+        dw, dh = dsize
+        fx, fy = dw / w, dh / h
+    if dw <= 0 or dh <= 0:
+        raise ValueError(f"resize_area: empty destination {dw}x{dh}")
+    scale_x, scale_y = 1.0 / fx, 1.0 / fy
+    if scale_x < 1 or scale_y < 1:
+        raise ValueError("resize_area: only shrinking is OpenCV's area rule")
+    img = src.reshape(h, w, -1)
+    ix, iy = int(round(scale_x)), int(round(scale_y))
+    eps = np.finfo(np.float64).eps
+    if abs(scale_x - ix) < eps and abs(scale_y - iy) < eps:
+        out = _area_fast(img, dh, dw, ix, iy)
+    else:
+        cols = _weighted_rows(_area_table(w, dw, scale_x), dw, 3,
+                              lambda s: img[:, s].transpose(1, 0, 2)
+                              .astype(np.float32))  # (dw, h, cn)
+        cols = cols.transpose(1, 0, 2)  # (h, dw, cn)
+        acc = _weighted_rows(_area_table(h, dh, scale_y), dh, 3,
+                             lambda s: cols[s])
+        out = np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+    return out.reshape((dh, dw) + src.shape[2:])

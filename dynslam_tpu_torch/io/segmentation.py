@@ -10,7 +10,9 @@ horizontal pass in integers, the vertical pass as
 ``((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2 >> 2``.
 ``tests/test_torch_segmentation.py`` holds it to ``cv2.resize`` byte for
 byte. ``PrecomputedSegmentationProvider`` reads the MNC dumps (numpy-text
-masks; a bbox rescaled to the working resolution takes OpenCV's nearest
+masks, parsed by ``native/fastio.cpp`` or, under
+``DYNSLAM_NO_NATIVE_BUILD``, by ``read_mask_numpy``; a bbox rescaled to
+the working resolution takes OpenCV's nearest
 resize from ``io/images.py``), and ``write_mnc_dump`` writes them.
 """
 
@@ -24,7 +26,9 @@ from typing import List, Optional
 
 import numpy as np
 
+from dynslam_tpu_torch import native
 from dynslam_tpu_torch.io.images import read_png, resize_nearest, write_png
+from dynslam_tpu_torch.native import fastio
 
 PASCAL_VOC_2012_CLASSES = [
     "INVALID",  # VOC 2012 class IDs are 1-based
@@ -262,6 +266,16 @@ def detections_from_instance_ids(
     return dets
 
 
+def read_mask_numpy(path: str, width: int, height: int) -> np.ndarray:
+    """The numpy twin of ``fastio.read_text_mask``: a numpy-text binary
+    mask of exactly (height, width) values."""
+    data = np.loadtxt(path, dtype=np.float64, ndmin=2).astype(np.uint8)
+    if data.shape != (height, width):
+        raise ValueError(f"mask {path!r} has shape {data.shape}, "
+                         f"expected {(height, width)}")
+    return data
+
+
 class PrecomputedSegmentationProvider(SegmentationProvider):
     """Reads MNC dumps from disk (PrecomputedSegmentationProvider.
     {h,cpp})."""
@@ -277,12 +291,11 @@ class PrecomputedSegmentationProvider(SegmentationProvider):
     @staticmethod
     def _read_mask(path: str, width: int, height: int) -> np.ndarray:
         """A numpy-text binary mask, exactly bbox-sized
-        (PrecomputedSegmentationProvider.cpp:37-72)."""
-        data = np.loadtxt(path, dtype=np.float64, ndmin=2).astype(np.uint8)
-        if data.shape != (height, width):
-            raise ValueError(f"mask {path!r} has shape {data.shape}, "
-                             f"expected {(height, width)}")
-        return data
+        (PrecomputedSegmentationProvider.cpp:37-72): the native parser,
+        or its numpy twin under ``DYNSLAM_NO_NATIVE_BUILD``."""
+        if native.mode() == "native":
+            return fastio.read_text_mask(path, height, width)
+        return read_mask_numpy(path, width, height)
 
     def read_instance_info(self, base_img_fpath: str
                            ) -> List[InstanceDetection]:

@@ -8,6 +8,9 @@ import os
 
 import numpy as np
 
+from dynslam_tpu_torch import native
+from dynslam_tpu_torch.native import fastio
+
 
 class VelodyneIO:
     def __init__(self, folder: str, fname_format: str = "%06d.bin"):
@@ -21,13 +24,21 @@ class VelodyneIO:
         return os.path.exists(self.frame_path(frame_idx))
 
     def read_frame(self, frame_idx: int) -> np.ndarray:
-        """(N, 4) float32 [x, y, z, reflectance] in the velodyne frame."""
-        data = np.fromfile(self.frame_path(frame_idx), dtype=np.float32)
-        if data.size % 4 != 0:
-            raise ValueError(
-                f"corrupt velodyne frame {self.frame_path(frame_idx)!r}: "
-                f"{data.size} floats is not a multiple of 4")
-        return data.reshape(-1, 4)
+        """(N, 4) float32 [x, y, z, reflectance] in the velodyne frame:
+        the native parser, or ``read_numpy`` under
+        ``DYNSLAM_NO_NATIVE_BUILD``."""
+        if native.mode() == "native":
+            return fastio.read_velodyne(self.frame_path(frame_idx))
+        return read_numpy(self.frame_path(frame_idx))
+
+
+def read_numpy(path: str) -> np.ndarray:
+    """The numpy twin of ``fastio.read_velodyne``."""
+    data = np.fromfile(path, dtype=np.float32)
+    if data.size % 4 != 0:
+        raise ValueError(f"corrupt velodyne frame {path!r}: {data.size} "
+                         "floats is not a multiple of 4")
+    return data.reshape(-1, 4)
 
 
 def write_frame(path: str, points: np.ndarray) -> None:

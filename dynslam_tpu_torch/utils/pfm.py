@@ -3,16 +3,28 @@
 PrecomputedDepthProvider.cpp:31) in NumPy.
 
 PFM stores float32 images bottom-up; the scale line's sign encodes
-endianness (negative = little-endian).
+endianness (negative = little-endian). ``read_pfm`` takes the native
+parser (``native/fastio.cpp``), or ``read_pfm_numpy`` under
+``DYNSLAM_NO_NATIVE_BUILD``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from dynslam_tpu_torch import native
+from dynslam_tpu_torch.native import fastio
+
 
 def read_pfm(path: str) -> np.ndarray:
     """Read a PFM file into a float32 array (H, W) or (H, W, 3), top-down."""
+    if native.mode() == "native":
+        return fastio.read_pfm(path)
+    return read_pfm_numpy(path)
+
+
+def read_pfm_numpy(path: str) -> np.ndarray:
+    """The numpy twin of ``fastio.read_pfm``."""
     with open(path, "rb") as f:
         header = f.readline().strip()
         if header == b"PF":

@@ -1,8 +1,10 @@
 """The port's image and matrix files (``dynslam_tpu_torch/io/images.py``)
 against OpenCV, byte for byte: PNG read (every compression level cv2
 writes, and a file holding all five row filters) and write, OpenCV XML
-``FileStorage`` read and write, the nearest resize; and the PFM copy
-against the JAX package's ``utils/pfm.py``."""
+``FileStorage`` read and write, the nearest and area resizes, the gray
+conversions (``cvtColor`` and ``imread``'s gray read); and the PFM copy
+against the JAX package's ``utils/pfm.py``. ``resize_area`` is byte-exact
+at integer factors and at the area-table factors below alike."""
 
 import struct
 import zlib
@@ -200,6 +202,50 @@ def test_resize_nearest_to_size(dsize):
     mask = (np.random.default_rng(3).random((37, 53)) > 0.5).astype(np.uint8)
     want = cv2.resize(mask, dsize, interpolation=cv2.INTER_NEAREST)
     assert np.array_equal(images.resize_nearest(mask, dsize), want)
+
+
+def _scene_image(shape):
+    """Half noise, half a smooth ramp (area sums of every size)."""
+    img = np.random.default_rng(5).integers(0, 256, shape, dtype=np.uint8)
+    ramp = np.linspace(0, 255, shape[1]).astype(np.uint8)[None]
+    img[: shape[0] // 2] = ramp[..., None] if img.ndim == 3 else ramp
+    return img
+
+
+@pytest.mark.parametrize("shape", [(96, 192, 3), (97, 191, 3), (65, 81),
+                                   (375, 1242, 3)],
+                         ids=["even", "odd", "gray-odd", "kitti"])
+@pytest.mark.parametrize("fx", [0.5, 0.25, 1 / 3.0, 0.4, 0.37, 0.7])
+def test_resize_area_equals_cv2(shape, fx):
+    """``scale_sequence``'s resize (fx = fy = the scale): integer factors
+    (0.5, 0.25, 1/3) take OpenCV's block path, the rest its area
+    tables; blocks cut by an odd edge average what lies inside."""
+    img = _scene_image(shape)
+    want = cv2.resize(img, None, fx=fx, fy=fx, interpolation=cv2.INTER_AREA)
+    got = images.resize_area(img, None, fx, fx)
+    assert got.shape == want.shape and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("dsize", [(96, 48), (50, 31)])
+def test_resize_area_to_size(dsize):
+    img = _scene_image((97, 191, 3))
+    want = cv2.resize(img, dsize, interpolation=cv2.INTER_AREA)
+    assert np.array_equal(images.resize_area(img, dsize), want)
+
+
+def test_gray_conversions_equal_cv2(tmp_path):
+    """``bgr_to_gray`` is ``cvtColor(BGR2GRAY)``; ``read_png_gray`` is
+    ``imread(IMREAD_GRAYSCALE)`` (libpng's truncating weights), on a
+    colour file and on a gray one."""
+    img = _scene_image((375, 1242, 3))
+    img[:9] = img[:9, :, :1]  # some pixels with equal channels
+    want = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    assert np.array_equal(images.bgr_to_gray(img), want)
+    for name, data in (("c.png", img), ("g.png", want)):
+        path = str(tmp_path / name)
+        assert cv2.imwrite(path, data)
+        assert np.array_equal(images.read_png_gray(path),
+                              cv2.imread(path, cv2.IMREAD_GRAYSCALE))
 
 
 def test_pfm_round_trips_against_jax(tmp_path):

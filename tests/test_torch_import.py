@@ -1,6 +1,7 @@
 """The port imports torch and never jax: ``import dynslam_tpu_torch`` and
 every module of the static, dynamic and staged slices, of the evaluation,
-of the CLI, of the learned models and of the parallel paths leave no
+of the CLI, of the learned models, of the parallel paths, of the native
+readers and of the scripts leave no
 ``jax*``, ``flax``, ``optax``, ``msgpack`` or ``cv2`` module and nothing
 of the JAX package ``dynslam_tpu`` loaded. Checked in a fresh interpreter,
 because this test process imports jax (``tests/conftest.py``)."""
@@ -78,6 +79,19 @@ SLICE_MODULES = [
     "dynslam_tpu_torch.entry",
     "dynslam_tpu_torch.scripts.train_dispnet",
     "dynslam_tpu_torch.scripts.preprocess_sequence",
+    # the native readers and the last scripts
+    "dynslam_tpu_torch.native",
+    "dynslam_tpu_torch.native.build",
+    "dynslam_tpu_torch.native.fastio",
+    "dynslam_tpu_torch.scripts.bench_setup",
+    "dynslam_tpu_torch.scripts.soak",
+    "dynslam_tpu_torch.scripts.measure_fallback",
+    "dynslam_tpu_torch.scripts.scale_sequence",
+    "dynslam_tpu_torch.scripts.vo_drift",
+    "dynslam_tpu_torch.scripts.vo_diag",
+    "dynslam_tpu_torch.scripts.demo_synthetic",
+    "dynslam_tpu_torch.scripts.experiments",
+    "dynslam_tpu_torch.scripts.profile_dynamic",
 ]
 
 

@@ -11,12 +11,16 @@ every render reads the same map from the last frame's estimated pose; the
 truth is the renderer's depth from that pose. Only pixels that all four
 renders hit and whose true depth lies in (0.5 m, max_depth) count.
 
-Measured: K2 is nearer the surface than the Pallas raycast: median
-|error| 32.6 mm against 35.8 mm, 90th percentile 93.5 against 96.0 mm,
-nearer on 53% of the pixels. Both kernel renders sit about 11 mm in
-front of the surface (median signed error). The dense tracers, equal to
-each other, are nearer still: median 19.1 mm, 90th percentile 51.5 mm,
-1.8 mm in front. The bounds below hold these with a margin.
+Measured: K2 and the Pallas raycast are equally near the surface. Their
+median |error| is 30-36 mm and their 90th percentile 89-96 mm, the two
+medians within 3.2 mm of each other, and which one is nearer flips with
+the CPU thread count the map was built with (the staged slice's CPU
+reductions, and so its poses and its map, depend on it): K2 is nearer on
+0.474-0.533 of the pixels at 1, 2, 4 and 6 threads. Both kernel renders
+sit about 11 mm in front of the surface (median signed error). The dense
+tracers, equal to each other, are nearer than both: median 19.1 mm, 90th
+percentile 51.5 mm, 1.8 mm in front (at 2 threads). The bounds below
+hold at each of those thread counts.
 """
 
 import dataclasses
@@ -40,11 +44,22 @@ from test_torch_dynslam import CFG, N_FRAMES, H, W
 from test_torch_eval import to_port
 from torch_frontend_inputs import RENDER_CAND_K
 
-torch.set_num_threads(2)
+#: torch threads the map is built with; set inside the fixture, so the
+#: map does not depend on the count the worker last held
+THREADS = 2
 
 
 @pytest.fixture(scope="module")
 def errors(tmp_path_factory):
+    before = torch.get_num_threads()
+    torch.set_num_threads(THREADS)
+    try:
+        yield _errors(tmp_path_factory)
+    finally:
+        torch.set_num_threads(before)
+
+
+def _errors(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("truth"))
     scene_seed = 0
     write_kitti_sequence(root, num_frames=N_FRAMES, width=W, height=H,
@@ -95,7 +110,10 @@ def _stats(e):
 
 
 def test_k2_nearer_than_pallas(errors):
-    """(``pytest -s`` prints the measurement the module docstring quotes.)"""
+    """K2 and the Pallas raycast are equally near the surface: neither is
+    nearer on more than 0.6 of the pixels, and their medians differ by at
+    most 5 mm. (``pytest -s`` prints the measurement the module docstring
+    quotes.)"""
     assert errors["k2"].size > 3000
     for name, e in errors.items():
         print(name, "median |error|, 90th percentile, median signed error "
@@ -104,9 +122,10 @@ def test_k2_nearer_than_pallas(errors):
     print(f"K2 nearer than Pallas on {nearer:.3f} of {errors['k2'].size} "
           "pixels")
     k2, pal = _stats(errors["k2"]), _stats(errors["pallas"])
-    assert k2[0] < pal[0] and k2[1] <= pal[1], (k2, pal)
-    assert k2[0] <= 0.04 and k2[1] <= 0.1
-    assert (np.abs(errors["k2"]) < np.abs(errors["pallas"])).mean() > 0.5
+    for s in (k2, pal):
+        assert s[0] <= 0.04 and s[1] <= 0.1, (k2, pal)
+    assert abs(k2[0] - pal[0]) <= 0.005, (k2, pal)
+    assert 0.4 <= nearer <= 0.6
     # both kernel renders lie a centimetre in front of the surface
     assert -0.02 < k2[2] < 0 and -0.02 < pal[2] < 0
 
