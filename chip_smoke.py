@@ -166,8 +166,27 @@ and never prints its last line):
     %/frame, RMSE <= 0.5 m) and ``profile_dynamic`` over phase 8's frames,
     which must see every stage of the dynamic step run.
 
-Phases 3, 4, 7, 9, 12, 14, 15, 17 and 18 also print each kernel's times: the
-bare kernel (its prepared C call alone, no Python conversion between
+19. the staged CLI's depth-input and odometry options on phase 13's
+    folder, static, no evaluation: (a) ``build_dynslam`` with
+    ``external_odometry=False`` (ICP against the prepare render from frame
+    2 on; no CLI flag): every ICP call on the card against ``icp_track``
+    on a CPU copy of its inputs (within 1e-4), ICP success by frame, the
+    drift (<= 2% of the distance), and the pre-pass and the march at the
+    last prepare render's pose against their twins; (b)
+    ``--use_depth_weighting --fusion_every 2``: K1 launches only on the
+    fused frames, and its frame-10 launch (depth weighting on) against
+    ``integrate_ref``; (c) ``--use_live_stereo --fill_disparity_gaps 8
+    --use_bilateral_filter``: frame 0's input depth on the card equal to
+    the CPU run of the same provider, and within 1e-4 m of it after the
+    bilateral filter, and the stage times; (d) ``--use_dispnet`` over
+    PFMs of the renderer's disparity: every frame's input depth equal to
+    the CPU read; (e) ``--scale 2`` on the folders ``scale_sequence
+    --scale 0.5`` writes: 621x187 frames, and K1, the pre-pass and the
+    march at frame 10 against their twins. Each run prints its frame rate,
+    host syncs, used and dropped blocks, peak memory and drift.
+
+Phases 3, 4, 7, 9, 12, 14, 15 and 17-19 also print each kernel's times:
+the bare kernel (its prepared C call alone, no Python conversion between
 launches), warm (50 back-to-back launches between two CUDA events) and
 cold (the L2
 flushed by a 128 MB write before each launch, an event pair around each);
@@ -235,6 +254,10 @@ DET_SCORE, DET_MIN_PX = 0.98, 45
 K1_MIN_EXACT = 0.9999  # packed words bit-exact; the rest within 1 quantum
 K2_MIN_HIT_AGREE = 0.999
 K2_MAX_MEDIAN_DEPTH = 1e-4  # m
+#: timed calls of the march's plain version after its warm-up call: it
+#: takes 2-12 s a call at KITTI size, and each check also runs it to
+#: compare and to count the words it reads
+PLAIN_MARCH_REPS = 1
 #: the raycast stage of a static frame: the pre-pass (bitmap clear and
 #: kernel) and the march (header clear and kernel), and no small ops
 RAYCAST_STAGE_MAX_LAUNCHES = 8
@@ -765,7 +788,7 @@ def march_times(cfg, state, grid, origin, bits, c2w, intr, flush, pre,
 
 
 def check_raycast(cfg, scene, flush, parent=None, kernel_reps: int = 20,
-                  plain_reps: int = 3) -> dict:
+                  plain_reps: int = PLAIN_MARCH_REPS) -> dict:
     """The pre-pass and K2 against ``candidate_bits_ref`` and
     ``raycast_ref`` on the map after K1 fused frame 1."""
     import torch
@@ -1204,7 +1227,7 @@ def check_integrate_many(rec, flush, parent=None, reps: int = 20,
 
 def check_instance_raycast(pipe, track, frames, flush, parent=None,
                            kernel_reps: int = 20,
-                           plain_reps: int = 3) -> dict:
+                           plain_reps: int = PLAIN_MARCH_REPS) -> dict:
     """The pre-pass and K2 on the track's object volume from the camera of
     its last fused frame (``raycast_instance``'s inputs) against
     ``candidate_bits_ref`` and ``raycast_ref``, and their times."""
@@ -1458,7 +1481,8 @@ def check_dynamic_eval(res, off: dict) -> dict:
 
 
 def check_crop_raycast(pipe, crops: CropRecorder, flush, parent=None,
-                       kernel_reps: int = 20, plain_reps: int = 3) -> dict:
+                       kernel_reps: int = 20,
+                       plain_reps: int = PLAIN_MARCH_REPS) -> dict:
     """Phase 12: the pre-pass and K2 in the crop viewport — the largest
     object volume at the end of phase 11, in the viewport of its last crop
     render there — against
@@ -1794,7 +1818,7 @@ def free_pose(c2w, up=3.0, back=6.0, pitch_deg=15.0):
 
 def check_view_raycast(cfg, state, c2w_np, intr, flush, parent, what,
                        min_hits: int, kernel_reps: int = 20,
-                       plain_reps: int = 3) -> dict:
+                       plain_reps: int = PLAIN_MARCH_REPS) -> dict:
     """The pre-pass and K2 on ``state`` from ``c2w_np`` (host 4x4), the
     window and visible list built at that pose as ``MapEngine`` and the
     pool build them, against ``candidate_bits_ref`` and ``raycast_ref``,
@@ -2791,7 +2815,7 @@ def run_soaks(s_loop, d_loop, device, flush) -> dict:
     scene = soak_scene(cfg, res["pipe"], s_loop, (n - 1) % SOAK_LAP)
     k1 = check_integrate(cfg, scene, flush)
     # the plain march takes ~10 s at this map: one timed call
-    k2 = check_raycast(cfg, scene, flush, plain_reps=1)
+    k2 = check_raycast(cfg, scene, flush)
     static = dict(laps=res["laps"], launches=launches, k1=k1, k2=k2,
                   fused=n - 1)
     del res, scene
@@ -2933,6 +2957,462 @@ def run_phase18(base, sdir: Path, dyn_frames, s_loop, d_loop, vo_seq,
     say("profile_dynamic", f"every stage of {profile_dynamic.STAGES} ran "
                            f"over frames {PROFILE_WARMUP + 1}-{N_DYN - 1}")
     return dict(soaks=soaks, fallback=fb, vo=vo, profile=prof)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the staged CLI's depth-input and odometry options
+# ---------------------------------------------------------------------------
+
+#: the frame whose K1 launch (at half scale also its K2 march) phase 19
+#: holds to the plain versions: fused under --fusion_every 2, late enough
+#: that the map has grown
+OPTION_FRAME = 10
+#: 19a: each ICP call on the card against the port's ``icp_track`` on a CPU
+#: copy of the same inputs: the result pose's entries, and success equal
+ICP_ATOL = 1e-4
+#: PERF.md section 2: the final position error over the distance travelled
+MAX_DRIFT = 0.02
+#: 19c: the card's bilateral-filtered input depth against the CPU's (m):
+#: the filter's exp() weights and its sums round otherwise on the card
+BILATERAL_ATOL_M = 1e-4
+#: 19e: the CLI divides the frame size by ``--scale`` (``probe_frame_size``,
+#: the JAX CLI's rule), so half the size is 2, read from the folders
+#: ``scale_sequence --scale 0.5`` writes (the reference's recipe; the
+#: live resize leaves the depth wrong: tests/test_torch_staged_options.py)
+HALF_SCALE = 2.0
+
+
+def write_dispnet_pfms(config, frames, root: Path) -> int:
+    """DispNet dumps in phase 13's folder: each frame's disparity by the
+    renderer's rule (``bf / depth``, 0 where the ray missed) as a PFM
+    under ``precomputed-depth-dispnet``. Returns the files written."""
+    import numpy as np
+
+    from dynslam_tpu_torch.utils.pfm import write_pfm
+
+    out = root / "precomputed-depth-dispnet"
+    out.mkdir(parents=True, exist_ok=True)
+    bf = config.calibration.bf
+    for f, depth in enumerate(frames["depth"]):
+        disp = np.where(depth > 0, bf / np.maximum(depth, 1e-6), 0.0)
+        write_pfm(str(out / f"{f:06d}.pfm"), disp.astype(np.float32))
+    return len(frames["depth"])
+
+
+class OptionRecorder:
+    """Instruments ``MapEngine`` while a phase 19 run drives it: every
+    frame's input depth (int16 mm, as ``update_view`` gets it) and frame
+    0's depth as the map gets it (after the bilateral filter, when on);
+    and, at frame ``at``, K1's inputs (the allocated map, its visible
+    list, the view, pose and frame) with the window and pose the engine
+    built for them, as ``map_scene`` gives them to ``check_integrate`` and
+    ``check_raycast``. Every call is passed on."""
+
+    def __init__(self, at: int = OPTION_FRAME):
+        self.at, self.depth_mm, self.view0, self.scene = at, [], None, None
+        self._armed = False
+
+    def __enter__(self):
+        from dynslam_tpu_torch.pipeline import mapping
+
+        import numpy as np
+
+        self._saved = (mapping.integrate, mapping.MapEngine.integrate,
+                       mapping.MapEngine.update_view)
+        k1, fuse, view = self._saved
+        rec = self
+
+        def integrate(cfg, state, slots, mask, rgb, depth, w2c, frame,
+                      *args, **kw):
+            if rec._armed:
+                rec.scene = dict(cfg=cfg, state=state.clone(),
+                                 slots=slots.clone(), mask=mask.clone(),
+                                 rgb=rgb.clone(), depth=depth.clone(),
+                                 w2c=w2c.clone(), frame=frame)
+            return k1(cfg, state, slots, mask, rgb, depth, w2c, frame,
+                      *args, **kw)
+
+        def engine_integrate(eng):
+            rec._armed = eng.frame_idx == rec.at
+            try:
+                fuse(eng)
+            finally:
+                armed, rec._armed = rec._armed, False
+            if armed:
+                _, c2w, origin, grid, _, _ = eng._frame_cache
+                rec.scene.update(c2w=c2w, origin=origin, grid=grid)
+
+        def update_view(eng, rgb, depth_mm, bilateral=False):
+            view(eng, rgb, depth_mm, bilateral=bilateral)
+            rec.depth_mm.append(np.array(depth_mm))
+            if rec.view0 is None:
+                rec.view0 = eng._view_depth_m.cpu().numpy()
+
+        mapping.integrate = integrate
+        mapping.MapEngine.integrate = engine_integrate
+        mapping.MapEngine.update_view = update_view
+        return self
+
+    def __exit__(self, *exc):
+        from dynslam_tpu_torch.pipeline import mapping
+
+        (mapping.integrate, mapping.MapEngine.integrate,
+         mapping.MapEngine.update_view) = self._saved
+
+
+class IcpRecorder:
+    """Wraps ``MapEngine.track_icp`` as the port's ICP test's ``IcpLog``
+    does: passes every call on and keeps device copies of its inputs (the
+    depth, the render it tracks against and that render's pose, the
+    initial pose, the intrinsics) and its result, to hold each call to
+    ``icp_track`` on a CPU copy after the run."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import numpy as np
+
+        from dynslam_tpu_torch.pipeline import mapping
+
+        self._saved = mapping.MapEngine.track_icp
+        track, rec = self._saved, self
+
+        def track_icp(eng, depth_m, init_world_to_cam=None, stride=4):
+            rc = eng._last_raycast
+            res = track(eng, depth_m, init_world_to_cam=init_world_to_cam,
+                        stride=stride)
+            rec.calls.append(dict(
+                frame=eng.frame_idx, depth=np.array(depth_m),
+                points=rc.points.clone(), hit=rc.hit.clone(),
+                ref=np.linalg.inv(eng._last_raycast_pose).astype(np.float32),
+                init=np.array(init_world_to_cam, np.float32),
+                intr=eng.intrinsics_vec.clone(), stride=stride,
+                out=res.world_to_cam.clone(), ok=res.success))
+            return res
+
+        mapping.MapEngine.track_icp = track_icp
+        return self
+
+    def __exit__(self, *exc):
+        from dynslam_tpu_torch.pipeline import mapping
+
+        mapping.MapEngine.track_icp = self._saved
+
+
+def check_icp_calls(calls) -> dict:
+    """19a: every ICP call of the run against ``icp_track`` on CPU copies
+    of its inputs."""
+    import torch
+
+    from dynslam_tpu_torch.ops.icp import icp_track
+
+    worst, ok = 0.0, []
+    for c in calls:
+        want = icp_track(torch.from_numpy(c["depth"]), c["points"].cpu(),
+                         c["hit"].cpu(), torch.from_numpy(c["ref"]),
+                         torch.from_numpy(c["init"]), c["intr"].cpu(),
+                         stride=c["stride"])
+        gap = (want.world_to_cam - c["out"].cpu()).abs().max().item()
+        if gap > ICP_ATOL or bool(want.success) != bool(c["ok"]):
+            raise AssertionError(
+                f"ICP at frame {c['frame']} on the card: pose {gap:.3g} "
+                f"from icp_track on a CPU copy (need <= {ICP_ATOL}), "
+                f"success {bool(c['ok'])} vs {bool(want.success)}")
+        worst = max(worst, gap)
+        ok.append((c["frame"], bool(c["ok"])))
+    return dict(worst=worst, ok=ok)
+
+
+def drift(est_c2w, gt_c2w) -> dict:
+    """The final position error against ground truth, per axis and over
+    the distance travelled; every frame's error."""
+    import numpy as np
+
+    n = len(est_c2w)
+    errs = [float(np.linalg.norm(est_c2w[i][:3, 3] - gt_c2w[i][:3, 3]))
+            for i in range(n)]
+    axes = est_c2w[-1][:3, 3] - gt_c2w[n - 1][:3, 3]
+    travelled = SPEED * (n - 1)
+    return dict(err=errs[-1], axes=[float(a) for a in axes], errs=errs,
+                travelled=travelled, share=errs[-1] / travelled)
+
+
+def option_run(tag: str, args, frames, at: int = OPTION_FRAME):
+    """One phase 19 run of the CLI (``run_cli``) under an
+    ``OptionRecorder``; prints its frame rate over frames 5-9, the host
+    syncs of frame 6, used and dropped blocks, peak memory and drift.
+    Returns (probe, recorder)."""
+    import torch
+
+    from dynslam_tpu_torch.io.calib import read_kitti_poses
+
+    out = Path(args[args.index("--out") + 1])
+    held = torch.cuda.memory_allocated()
+    with OptionRecorder(at) as rec:
+        probe = run_cli(args, census_frame=STAGED_CENSUS_FRAME)
+    probe.held_gb = held / 1e9
+    n = frames["left"].shape[0]
+    if sorted(probe.frames) != list(range(n)):
+        raise AssertionError(f"{tag}: frames run {sorted(probe.frames)}")
+    d = drift(read_kitti_poses(str(out / "trajectory.txt")), frames["poses"])
+    option_line(tag, probe, d)
+    return probe, rec
+
+
+def option_line(tag: str, probe, d) -> None:
+    """A phase 19 run's line (``option_run``); fails on dropped blocks."""
+    scene = probe.dyn.static_scene
+    dropped = scene.get_dropped_allocation_count()
+    if dropped:
+        raise AssertionError(f"{tag}: {dropped} blocks dropped")
+    ms = [probe.frames[i]["ms"] for i in DYN_FPS_FRAMES]
+    say(tag, f"{len(ms) / (sum(ms) / 1e3):.2f} FPS over frames "
+             f"{DYN_FPS_FRAMES.start}-{DYN_FPS_FRAMES.stop - 1} "
+             f"({', '.join(f'{m:.1f}' for m in ms)} ms); host syncs in frame "
+             f"{STAGED_CENSUS_FRAME}: {sum(probe.census.values())}; used "
+             f"blocks {scene.get_used_block_count()}, dropped {dropped}; "
+             f"peak memory {probe.peak_gb - probe.held_gb:.2f} GB above the "
+             f"{probe.held_gb:.2f} GB held before the run; launches "
+             f"{probe.launches}; final pose error {d['err'] * 100:.2f} cm "
+             f"over {d['travelled']:.1f} m ({d['share'] * 100:.3f}%; x, y, "
+             f"z {', '.join(f'{a * 100:+.2f}' for a in d['axes'])} cm)")
+
+
+def check_option_scene(tag: str, rec, flush, parent, march: bool) -> dict:
+    """K1 on the recorded frame's inputs against ``integrate_ref`` (phase
+    3's check) and, with ``march``, the pre-pass and the march on the map
+    it fuses against their twins (phase 4's)."""
+    s = rec.scene
+    if s is None:
+        raise AssertionError(f"{tag}: no K1 launch recorded at frame "
+                             f"{rec.at}")
+    k1 = check_integrate(s["cfg"], s, flush, parent)
+    say(tag, f"K1 at frame {rec.at} ({s['depth'].shape[1]}x"
+             f"{s['depth'].shape[0]}, depth weighting "
+             f"{int(s['cfg'].use_depth_weighting)}) vs integrate_ref on "
+             f"{k1['blocks']} visible blocks ({k1['pixels']} distinct pixels"
+             f" read): {k1['exact'] * 100:.4f}% words bit-exact (need >= "
+             f"{K1_MIN_EXACT * 100:.2f}%), max |dsdf| {k1['max_abs_err']:.3g},"
+             f" |dw| {k1['dw']} q, |dcolor| {k1['dcolor']}; "
+             + timing_text(k1))
+    if not march:
+        return dict(k1=k1)
+    k2 = check_raycast(s["cfg"], s, flush, parent)
+    say(tag, f"K2 pre-pass bitmap equals candidate_bits_ref "
+             f"({k2['pre']['n_cand']} candidate cells); "
+             + timing_text(k2["pre"]))
+    say(tag, f"K2 march vs raycast_ref: hit agreement "
+             f"{k2['agree'] * 100:.4f}%, median |ddepth| {k2['median']:.3g}"
+             f" m, points/colour/weight equal on "
+             f"{k2['epi_agree'] * 100:.4f}% of equal-depth pixels, hit "
+             f"{k2['hit']:.3f}; {reads_text(k2['reads'])}; "
+             + timing_text(k2))
+    return dict(k1=k1, k2=k2)
+
+
+def run_icp_primary(seq: Path, frames, flush, parent) -> dict:
+    """19a: ``build_dynslam`` with ``external_odometry=False`` (no CLI
+    flag), static, over phase 13's folder: ICP against the prepare render
+    from frame 2 on. Every call against ``icp_track`` on a CPU copy, ICP
+    success by frame, drift against ground truth (<= ``MAX_DRIFT``), and
+    the pre-pass and the march at the last render's pose against their
+    twins."""
+    import numpy as np
+    import torch
+
+    from dynslam_tpu_torch.config import DynSlamConfig, VoxelDecayParams
+    from dynslam_tpu_torch.pipeline.builder import build_dynslam
+
+    cfg = DynSlamConfig(dynamic_mode=False, external_odometry=False,
+                        decay=VoxelDecayParams(True, MIN_DECAY_AGE, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    with IcpRecorder() as icp, StagedProbe(STAGED_CENSUS_FRAME) as probe:
+        dyn, input_ = build_dynslam(str(seq), cfg, with_instances=False)
+        while dyn.process_frame(input_):
+            pass
+        torch.cuda.synchronize()
+    probe.launches = launch_counts()
+    probe.peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    probe.held_gb = held / 1e9
+    n = frames["left"].shape[0]
+    if sorted(probe.frames) != list(range(n)):
+        raise AssertionError(f"icp: frames run {sorted(probe.frames)}")
+    d = drift([np.linalg.inv(p) for p in dyn.pose_history[1:]],
+              frames["poses"])
+    calls = check_icp_calls(icp.calls)
+    option_line("icp", probe, d)
+    say("icp", f"{len(icp.calls)} ICP calls (frames 2-{n - 1}), each within "
+               f"{calls['worst']:.3g} of icp_track on a CPU copy of its "
+               f"inputs (need <= {ICP_ATOL}); success by frame "
+               f"{calls['ok']}; error by frame (cm) "
+               f"{[round(e * 100, 2) for e in d['errs']]}")
+    if len(icp.calls) != n - 2 or not d["share"] <= MAX_DRIFT:
+        raise AssertionError(
+            f"icp: {len(icp.calls)} ICP calls for {n} frames; final pose "
+            f"error {d['err']:.3f} m over {d['travelled']:.1f} m (need <= "
+            f"{MAX_DRIFT:.0%})")
+    eng = dyn.static_scene
+    k2 = check_view_raycast(eng.cfg, eng.state, eng._last_raycast_pose,
+                            eng.intrinsics_vec, flush, parent,
+                            "K2 at the ICP render's pose", min_hits=100_000)
+    say("icp", f"K2 at the last prepare render's pose: pre-pass bitmap "
+               f"equal ({k2['pre']['n_cand']} candidate cells); "
+               + timing_text(k2["pre"]))
+    say("icp", f"K2 march vs raycast_ref: hit agreement "
+               f"{k2['agree'] * 100:.4f}%, median |ddepth| "
+               f"{k2['median']:.3g} m, {k2['hits']} hits; "
+               f"{reads_text(k2['reads'])}; " + timing_text(k2))
+    return dict(launches=probe.launches, drift=d, k2=k2)
+
+
+def check_live_stereo(probe, rec, seq: Path) -> dict:
+    """19c: frame 0's input depth on the card against the port's CPU run
+    of the same provider on the same images: the depth in mm equal, the
+    bilateral-filtered depth within ``BILATERAL_ATOL_M``."""
+    import numpy as np
+    import torch
+
+    from dynslam_tpu_torch.io.depth_providers import \
+        StereoMatcherDepthProvider
+    from dynslam_tpu_torch.io.images import read_png
+    from dynslam_tpu_torch.ops import depth as depth_ops
+
+    cfg = probe.dyn.config
+    left, right = (read_png(str(seq / d / "000000.png"))
+                   for d in ("image_2", "image_3"))
+    prov = StereoMatcherDepthProvider(cfg.stereo, cfg.min_depth_m,
+                                      cfg.max_depth_m, device="cpu")
+    mm = prov.depth_from_stereo(left, right, cfg.calibration)
+    card = rec.depth_mm[0]
+    if card.shape != mm.shape or not np.array_equal(card, mm):
+        raise AssertionError(
+            f"live stereo: frame 0's depth on the card differs from the CPU"
+            f" run's at {int((card != mm).sum())} pixels")
+    cpu = depth_ops.bilateral_filter_depth(
+        depth_ops.depth_m_from_mm(torch.from_numpy(mm))).numpy()
+    gap = float(np.abs(rec.view0 - cpu).max())
+    if gap > BILATERAL_ATOL_M:
+        raise AssertionError(f"bilateral filter: {gap:.3g} m from the CPU "
+                             f"run (need <= {BILATERAL_ATOL_M})")
+    return dict(valid=float((mm > 0).mean()), gap=gap)
+
+
+def check_dispnet_reads(rec, seq: Path, cfg) -> int:
+    """19d: every frame's input depth on the card equal to the port's CPU
+    read of the same PFM."""
+    import numpy as np
+
+    from dynslam_tpu_torch.io.depth_providers import PrecomputedDepthProvider
+
+    prov = PrecomputedDepthProvider(str(seq / "precomputed-depth-dispnet"),
+                                    "%06d.pfm", False, cfg.min_depth_m,
+                                    cfg.max_depth_m)
+    for f, card in enumerate(rec.depth_mm):
+        want = prov.get_depth(f, cfg.calibration)
+        if not np.array_equal(card, want):
+            raise AssertionError(f"dispnet: frame {f}'s depth differs from "
+                                 f"the CPU read at {int((card != want).sum())}"
+                                 " pixels")
+    return len(rec.depth_mm)
+
+
+def run_depth_weighting(static, sdir: Path, frames, flush, parent) -> dict:
+    """19b: K1's depth-weighting branch, fusing every other frame."""
+    dw, rec = option_run("depth-weighting", static + [
+        "--out", sdir / "out_depth_weighting", "--use_depth_weighting",
+        "--fusion_every", 2], frames)
+    n = frames["left"].shape[0]
+    k1_by_frame = [dw.frames[f]["k1"] for f in range(n)]
+    if k1_by_frame != [int(f >= 1 and f % 2 == 0) for f in range(n)]:
+        raise AssertionError(f"depth weighting: K1 launches by frame "
+                             f"{k1_by_frame}, every other frame fused")
+    if not rec.scene["cfg"].use_depth_weighting:
+        raise AssertionError("depth weighting: K1 launched without it")
+    k = check_option_scene("depth-weighting", rec, flush, parent,
+                           march=False)
+    say("depth-weighting", f"K1 launches by frame {k1_by_frame}")
+    return dict(launches=dw.launches, **k)
+
+
+def run_live_stereo(static, sdir: Path, frames) -> None:
+    """19c: live census stereo, the gap fill and the bilateral filter."""
+    ls, rec = option_run("live-stereo", static + [
+        "--out", sdir / "out_live_stereo", "--use_live_stereo",
+        "--fill_disparity_gaps", 8, "--use_bilateral_filter"], frames)
+    live = check_live_stereo(ls, rec, sdir / "seq")
+    t = ls.dyn._timers
+    stages = ", ".join(f"{k} {t.mean_ms(k):.2f}" for k in t.names())
+    say("live-stereo", f"frame 0's depth on the card equals the CPU run's "
+                       f"(valid share {live['valid']:.4f}); after the "
+                       f"bilateral filter within {live['gap']:.3g} m (need "
+                       f"<= {BILATERAL_ATOL_M}); stage ms a frame: "
+                       f"{stages}")
+
+
+def run_dispnet(static, sdir: Path, dconfig, frames) -> None:
+    """19d: DispNet dumps of the renderer's disparity."""
+    n_pfm = write_dispnet_pfms(dconfig, frames, sdir / "seq")
+    dn, rec = option_run("dispnet", static + [
+        "--out", sdir / "out_dispnet", "--use_dispnet"], frames)
+    n_read = check_dispnet_reads(rec, sdir / "seq", dn.dyn.config)
+    say("dispnet", f"{n_pfm} PFMs written; the input depth of all {n_read} "
+                   f"frames equals the CPU read; 1-read-input "
+                   f"{dn.dyn._timers.mean_ms('1-read-input'):.2f} ms a "
+                   f"frame")
+
+
+def run_half_scale(static, sdir: Path, frames, flush, parent) -> dict:
+    """19e: half the frame size, from the folders ``scale_sequence``
+    prescales."""
+    from dynslam_tpu_torch.io.images import read_png
+    from dynslam_tpu_torch.scripts import scale_sequence
+
+    seq = sdir / "seq"
+    scale_sequence.main(["--dataset_root", str(seq), "--scale",
+                         str(1.0 / HALF_SCALE)])
+    hs, rec = option_run("half-scale", static + [
+        "--out", sdir / "out_half_scale", "--scale", HALF_SCALE], frames)
+    # the prescaled folder's size (OpenCV's INTER_AREA rounds 187.5 up)
+    want = read_png(str(seq / f"image_2_{1.0 / HALF_SCALE:.2f}"
+                        / "000000.png")).shape[1::-1]
+    cfg = hs.dyn.config
+    if (cfg.frame_width, cfg.frame_height) != want \
+            or rec.depth_mm[0].shape != want[::-1] \
+            or abs(want[0] * HALF_SCALE - W) > HALF_SCALE:
+        raise AssertionError(f"half scale: frames {cfg.frame_width}x"
+                             f"{cfg.frame_height}, depth "
+                             f"{rec.depth_mm[0].shape}, want {want}")
+    k = check_option_scene("half-scale", rec, flush, parent, march=True)
+    say("half-scale", f"{want[0]}x{want[1]} frames from the prescaled "
+                      f"folders (scale_sequence and the run)")
+    return dict(launches=hs.launches, **k)
+
+
+def run_phase19(base, sdir: Path, dconfig, frames, flush, parent) -> dict:
+    """Phase 19 (see the module docstring), one function a run, so that
+    each run's pipeline is freed before the next; returns what the kernels
+    line reports."""
+    static = base + ["--no-dynamic_mode"]
+    out, times, t_phase = {}, {}, time.perf_counter()
+    for key, run in (
+            ("icp", lambda: run_icp_primary(sdir / "seq", frames, flush,
+                                            parent)),
+            ("dw", lambda: run_depth_weighting(static, sdir, frames, flush,
+                                               parent)),
+            ("live", lambda: run_live_stereo(static, sdir, frames)),
+            ("dispnet", lambda: run_dispnet(static, sdir, dconfig, frames)),
+            ("hs", lambda: run_half_scale(static, sdir, frames, flush,
+                                          parent))):
+        t0 = time.perf_counter()
+        out[key] = run()
+        times[key] = round(time.perf_counter() - t0, 1)
+    say("options", f"phase 19 in {time.perf_counter() - t_phase:.1f} s "
+                   f"(s a run: {times})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3423,6 +3903,9 @@ def main(argv=None) -> int:
     p18 = run_phase18(base, sdir, dyn_frames, s_loop, d_loop, vo_seq,
                       device, flush)
 
+    # 19. the staged CLI's depth-input and odometry options
+    p19 = run_phase19(base, sdir, dconfig, dyn_frames, flush, parent)
+
     k1_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/integrate.cu",
                   replaces="dynslam_tpu/ops/pallas_integrate.py:536")
     k2_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/raycast.cu",
@@ -3536,10 +4019,29 @@ def main(argv=None) -> int:
         kernel_entry("integrate/oversize-fallback", k1_src, fb["launches"],
                      1.0, fb["k1"]),
     ]
+    # phase 19's runs: 19b's fusions (the depth-weighting branch) with
+    # its recorded launch's times, 19a's renders (the prepare render ICP
+    # tracks against) with the times at its last pose, 19e's fusions and
+    # renders at half the frame size with its recorded frame's
+    il, wl, hl = (p19[k]["launches"] for k in ("icp", "dw", "hs"))
+    kernels += [
+        kernel_entry("integrate/staged-depth-weighting", k1_src,
+                     wl["integrate"], wl["integrate"] / N_DYN,
+                     p19["dw"]["k1"]),
+        kernel_entry("raycast/candidates-staged-icp", k2_src,
+                     il["candidates"], il["candidates"] / N_DYN,
+                     p19["icp"]["k2"]["pre"]),
+        kernel_entry("raycast/staged-icp", k2_src, il["raycast"],
+                     il["raycast"] / N_DYN, p19["icp"]["k2"]),
+        kernel_entry("integrate/staged-half-scale", k1_src, hl["integrate"],
+                     hl["integrate"] / N_DYN, p19["hs"]["k1"]),
+        kernel_entry("raycast/staged-half-scale", k2_src, hl["raycast"],
+                     hl["raycast"] / N_DYN, p19["hs"]["k2"]),
+    ]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"paths whose kernel never launched: {idle}")
-    say("done", f"phases 1-18 in {time.perf_counter() - t_start:.1f} s")
+    say("done", f"phases 1-19 in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,15 @@ def icp_track(
     dist_threshold: float = 0.25,
     huber_delta: float = 0.02,
 ) -> IcpResult:
+    # the whole solve runs in float64, its result is float32: in float32
+    # the sums over the points and the association's rounding moved the
+    # pose by up to ~5e-4 between the card and the CPU and between CPU
+    # thread counts (KITTI-size frames, the street's weakly constrained
+    # forward axis); in float64 the same inputs give the same pose on both
+    out = depth_m.dtype
+    depth_m, ref_points, ref_world_to_cam, init_world_to_cam, intrinsics = (
+        x.to(torch.float64) for x in (depth_m, ref_points, ref_world_to_cam,
+                                      init_world_to_cam, intrinsics))
     h, w = depth_m.shape
     dev = depth_m.device
     fx, fy, cx, cy = intrinsics[0], intrinsics[1], intrinsics[2], intrinsics[3]
@@ -61,15 +70,15 @@ def icp_track(
 
     d = depth_m[::stride, ::stride]
     hs, ws = d.shape
-    vv = torch.arange(hs, dtype=torch.float32, device=dev)[:, None].expand(
+    vv = torch.arange(hs, dtype=torch.float64, device=dev)[:, None].expand(
         hs, ws) * stride
-    uu = torch.arange(ws, dtype=torch.float32, device=dev)[None, :].expand(
+    uu = torch.arange(ws, dtype=torch.float64, device=dev)[None, :].expand(
         hs, ws) * stride
     valid_d = (d > 0.1).reshape(-1)
     pc = torch.stack([(uu - cx) / fx * d, (vv - cy) / fy * d, d],
                      -1).reshape(-1, 3)
     Rr, tr = ref_world_to_cam[:3, :3], ref_world_to_cam[:3, 3]
-    eye6 = 1e-5 * torch.eye(6, device=dev)
+    eye6 = 1e-5 * torch.eye(6, dtype=torch.float64, device=dev)
 
     def associate(c2w):
         pw = pc @ c2w[:3, :3].T + c2w[:3, 3]
@@ -114,4 +123,4 @@ def icp_track(
     mean_r = torch.where(ok, r.abs(), 0.0).sum() / torch.clamp(num, min=1)
     success = (num > 100) & (mean_r < 0.05) & torch.isfinite(c2w).all()
     w2c = torch.where(success, torch.linalg.inv_ex(c2w)[0], init_world_to_cam)
-    return IcpResult(w2c, num, mean_r, success)
+    return IcpResult(w2c.to(out), num, mean_r.to(out), success)

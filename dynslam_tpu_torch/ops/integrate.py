@@ -91,8 +91,10 @@ def integrate_ref(
     update = in_img & d_ok & (eta > -cfg.mu)
     sdf_obs = torch.clamp(eta * recip32(cfg.mu), -1.0, 1.0)
     if cfg.use_depth_weighting:
-        w_obs = torch.clamp((cfg.max_depth / torch.clamp(d, min=0.5)) ** 2,
-                            0.25, 5.0)
+        # a true division, as XLA's and the kernel's: a Python scalar over
+        # a tensor is its reciprocal times the scalar (``__rtruediv__``)
+        q = torch.div(d.new_tensor(cfg.max_depth), torch.clamp(d, min=0.5))
+        w_obs = torch.clamp(q * q, 0.25, 5.0)
     else:
         w_obs = torch.ones_like(d)
     w_obs = torch.where(update, w_obs, 0.0)

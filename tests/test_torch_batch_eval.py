@@ -28,8 +28,9 @@ from dynslam_tpu.parallel import batch_eval as jbe
 from dynslam_tpu_torch.ops import tsdf as tt
 from dynslam_tpu_torch.parallel import batch_eval, launch
 from test_torch_fused import assert_map_close
+from torch_threads import threads
 
-torch.set_num_threads(1)
+torch_threads = threads(1)
 
 N_FRAMES, N_SEQ, WORLD = 2, 4, 2
 METRIC_ATOL = 1e-5

@@ -10,7 +10,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from dynslam_tpu.io.synthetic import write_kitti_sequence
 from dynslam_tpu.pipeline import builder as jb
@@ -28,8 +27,9 @@ from test_torch_fused import CALIB, CFG as FUSED_CFG, _jax_sampler
 from torch_frontend_inputs import (
     dynamic_slice_config, make_dynamic_frames, make_frames,
 )
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 N = 5
 

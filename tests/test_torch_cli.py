@@ -17,8 +17,9 @@ from dynslam_tpu_torch import main
 from dynslam_tpu_torch.io.calib import read_kitti_poses
 from dynslam_tpu_torch.io.images import read_png
 from dynslam_tpu_torch.io.synthetic import write_kitti_sequence
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 W, H, N = 160, 120, 4
 
@@ -237,3 +238,73 @@ def test_cuda_is_the_default_device(seq, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA requested"):
         main.main(["--dataset_root", seq, "--tiny", "--out", str(tmp_path)])
+
+
+class _Built(Exception):
+    """Raised by a recording ``build_dynslam`` to stop the CLI there."""
+
+
+def _record_build(monkeypatch, module) -> list:
+    """Make ``module.build_dynslam`` record its arguments and stop."""
+    calls = []
+
+    def build_dynslam(*args, **kw):
+        calls.append((args, kw))
+        raise _Built
+
+    monkeypatch.setattr(module, "build_dynslam", build_dynslam)
+    return calls
+
+
+#: the staged CLI's depth-input and odometry option sets
+#: (tests/test_torch_staged_options.py runs each in both packages);
+#: ICP as the primary odometry has no flag in either CLI
+#: (``external_odometry`` is a config field), so its case checks that both
+#: CLIs keep the default
+OPTION_SETS = {
+    "depth-weighting": ["--use_depth_weighting", "--fusion_every", "2"],
+    "live-stereo": ["--use_live_stereo", "--fill_disparity_gaps", "8",
+                    "--use_bilateral_filter"],
+    "dispnet": ["--use_dispnet"],
+    "half-scale": ["--scale", "2"],
+    "icp-primary": [],
+}
+
+
+@pytest.mark.parametrize("case", list(OPTION_SETS))
+def test_option_set_config_equals_jax(seq, tmp_path, monkeypatch, case):
+    """The config and the ``build_dynslam`` arguments the port's CLI
+    builds for an option set equal those the JAX package's CLI builds
+    inline (``dynslam_tpu/main.py``), its ``build_dynslam`` stopped at the
+    call; nothing runs."""
+    from dynslam_tpu import main as jmain
+    from dynslam_tpu.pipeline import builder as jbuilder
+    from dynslam_tpu_torch.pipeline import builder as tbuilder
+
+    from test_torch_eval import to_port
+
+    flags = OPTION_SETS[case]
+    args = ["--dataset_root", seq, "--cpu", "--out", str(tmp_path)] + flags
+    jcalls = _record_build(monkeypatch, jbuilder)
+    tcalls = _record_build(monkeypatch, tbuilder)
+    for m in (jmain, main):
+        with pytest.raises(_Built):
+            m.main(args)
+    (jargs, jkw), (targs, tkw) = jcalls + tcalls
+    assert targs[0] == jargs[0] == seq
+    assert to_port(jargs[1]) == targs[1] \
+        == main.make_config(main.build_arg_parser().parse_args(args))
+    assert tkw.pop("device").type == "cpu"
+    assert tkw == jkw
+    cfg = targs[1]
+    assert (cfg.map.use_depth_weighting, cfg.fusion_every) == (
+        (True, 2) if case == "depth-weighting" else (False, 1))
+    assert (tkw["use_live_stereo"], cfg.stereo.fill_gaps,
+            cfg.use_bilateral_filter) == (
+        (True, 8, True) if case == "live-stereo" else (False, 0, False))
+    assert cfg.use_dispnet == (case == "dispnet")
+    assert cfg.scale == (2.0 if case == "half-scale" else 1.0)
+    assert cfg.external_odometry
+    for parser in (jmain.build_arg_parser(), main.build_arg_parser()):
+        assert not any("odometry" in a for action in parser._actions
+                       for a in action.option_strings)

@@ -12,24 +12,19 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from dynslam_tpu_torch.io.calib import read_kitti_poses
 from dynslam_tpu_torch.io.synthetic import write_kitti_sequence
 from dynslam_tpu_torch.scripts import demo_synthetic
 
 from test_torch_dynslam import MAX_POSE_GAP_M
+from torch_threads import threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--frames", "3", "--width", "128", "--height", "96", "--cpu"]
 
 
-@pytest.fixture(autouse=True)
-def two_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
+torch_threads = threads(2)
 
 
 @pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])

@@ -22,8 +22,9 @@ from dynslam_tpu_torch.ops import features as tf
 from dynslam_tpu_torch.ops import tsdf as tt
 
 from test_torch_tsdf import _cfg, _np, make_views
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 MIN_HIT_AGREE, MAX_MEDIAN_GAP_M, MIN_SAME_COLOR = 0.999, 1e-5, 0.999
 

@@ -7,8 +7,9 @@ import torch
 
 from dynslam_tpu.ops import depth as jd
 from dynslam_tpu_torch.ops import depth as td
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 BF = 0.537150654273 * 707.0912
 

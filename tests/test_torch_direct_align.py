@@ -19,8 +19,9 @@ from dynslam_tpu_torch.ops import direct_align as tda
 from dynslam_tpu_torch.utils import se3 as tse3
 
 from test_direct_align import INTR, _frames
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 MAX_T_GAP, MAX_RMS_GAP = 1e-4, 1e-3
 XI_GT = np.array([0.0, 0.01, 0.0, 0.02, 0.0, -0.10])

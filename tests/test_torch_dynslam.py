@@ -13,6 +13,7 @@ import csv
 import dataclasses
 import io
 import os
+import types
 
 import jax
 import numpy as np
@@ -26,6 +27,7 @@ from dynslam_tpu.config import (
 from dynslam_tpu.io.synthetic import write_kitti_sequence
 from dynslam_tpu.pipeline import builder as jb
 from dynslam_tpu.pipeline.mapping import PreviewType as JPreview
+from dynslam_tpu_torch import convert
 from dynslam_tpu_torch.pipeline import builder as tb
 from dynslam_tpu_torch.pipeline.mapping import PreviewType
 from dynslam_tpu_torch.utils.se3 import rotation_angle
@@ -36,8 +38,9 @@ from test_torch_mapping import check_render
 from torch_frontend_inputs import (
     RENDER_CAND_K, jax_kernel_renders, jax_sample_ids,
 )
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 W, H, N_FRAMES = 160, 120, 5
 #: tests/test_torch_eval_slice.py's static configuration (max_depth 8 m
@@ -57,14 +60,18 @@ CFG = DynSlamConfig(
 #: the poses of the two packages part by float order in two Gauss-Newton
 #: solvers: ~1e-6 m a frame with scene-flow odometry (PR 2)
 MAX_POSE_GAP_M, MAX_ROT_GAP_DEG = 5e-3, 0.05
-#: with ICP odometry the packages track against renders that part at a few
-#: pixels, and this corridor constrains ICP's forward axis weakly (walls
-#: and road run along it): both packages drift from the ground truth by
-#: over 10 cm by frame 3, and their poses part by 1.5 cm at frame 2 and
-#: 4.8 cm at frame 3 (measured). So the ICP slice is held
-#: to the JAX package's ``icp_track`` on the port's own inputs, exactly
-#: (``IcpLog``), and across the packages to this bound
-MAX_ICP_POSE_GAP_M = 0.06
+#: with ICP odometry the two packages' poses part by centimetres from frame
+#: 2 on, and by how much depends on the CPU thread count (1.5-4.5 cm at
+#: frame 2, 7.1-24.1 cm at frame 3 at 1-6 torch threads, measured): the
+#: frame-1 poses part by float order in the scene-flow egomotion (1.5e-7 to
+#: 6.0e-7 m), so the maps and the prepare renders part a little, and ICP,
+#: which this corridor constrains weakly along its forward axis (walls and
+#: road run along it), turns that into centimetres. So no cross-package
+#: pose bound holds the ICP frames; each step is held to the JAX package
+#: on the port's own state instead: the render ICP tracks against
+#: (``check_render``), the call (``icp_track`` within ``ICP_ATOL``) and the
+#: map it fuses (``assert_map_close``, and word for word)
+ICP_ATOL = 1e-4
 #: a CSV field that depends on the render: within max(5, 3% of the frame's
 #: evaluated points of its bucket) (PR 4's bound for the fused slices);
 #: the columns that do not depend on it, and the memory and tracker files,
@@ -111,10 +118,36 @@ class IcpLog:
         self.calls.append(dict(
             depth=np.array(depth_m), init=np.array(init_world_to_cam),
             points=rc.points.numpy().copy(), hit=rc.hit.numpy().copy(),
+            render=rc.depth.clone(), c2w=e._last_raycast_pose.copy(),
             ref=np.linalg.inv(e._last_raycast_pose),
             intr=e.intrinsics_vec.numpy().copy(),
             out=res.world_to_cam.numpy().copy(), ok=bool(res.success)))
         return res
+
+
+class MapLog:
+    """Wraps an engine's ``integrate``: keeps, by frame index, the map
+    before and after each fusion (JAX field names) and the view and pose
+    it fused."""
+
+    def __init__(self, engine):
+        self.fn, self.engine, self.fused = engine.integrate, engine, {}
+        engine.integrate = self
+
+    @staticmethod
+    def _state(state):
+        return {k: v.copy()
+                for k, v in convert.tsdf_state_to_numpy(state).items()}
+
+    def __call__(self):
+        e = self.engine
+        rec = dict(before=self._state(e.state), w2c=e.pose_w2c.copy(),
+                   c2w=e.cam_to_world.copy(), fidx=e.frame_idx,
+                   rgb=e._view_rgb.numpy().copy(),
+                   depth=e._view_depth_m.numpy().copy())
+        self.fn()
+        rec["after"] = self._state(e.state)
+        self.fused[rec["fidx"]] = rec
 
 
 def _rows(path):
@@ -143,13 +176,19 @@ def compare_csvs(jdir, tdir):
                     assert abs(int(a[col]) - int(b[col])) <= slack, where
 
 
-def run_both(tmp_path_factory, cfg, n, dynamic, **build):
+def run_both(tmp_path_factory, cfg, n, dynamic, size=(W, H),
+             write_dispnet=False, prepare=None, **build):
     """Both packages' staged pipelines over one ``write_kitti_sequence``
-    folder, frame by frame, with the render patch on. Returns per-frame
-    records and the end state."""
+    folder of ``size`` (with DispNet PFMs if ``write_dispnet``; then
+    ``prepare(root)``, if given), frame by frame, with the render patch
+    on. Returns per-frame records (poses, tracks, used blocks, the map's
+    words, each frame's input depth in mm and the depth the map was
+    given) and the end state."""
     root = str(tmp_path_factory.mktemp("staged") / "seq")
-    write_kitti_sequence(root, num_frames=n, width=W, height=H,
-                         with_dynamic=dynamic)
+    write_kitti_sequence(root, num_frames=n, width=size[0], height=size[1],
+                         with_dynamic=dynamic, write_dispnet=write_dispnet)
+    if prepare is not None:
+        prepare(root)
     jdir, tdir = (str(tmp_path_factory.mktemp(k)) for k in ("jax", "port"))
     with pytest.MonkeyPatch.context() as mp:
         fill = jax_kernel_renders(mp)
@@ -164,6 +203,8 @@ def run_both(tmp_path_factory, cfg, n, dynamic, **build):
         td.sparse_sf_provider.sampler = jax_sampler(
             jd.sparse_sf_provider._base_key, cfg.vo.ransac_iters)
         icp = IcpLog(td.static_scene)
+        # with ICP odometry, the maps its renders come from
+        maps = None if cfg.external_odometry else MapLog(td.static_scene)
         recs = []
         while jd.process_frame(ji):
             assert td.process_frame(ti)
@@ -180,7 +221,11 @@ def run_both(tmp_path_factory, cfg, n, dynamic, **build):
                 used=(jd.static_scene.get_used_block_count(),
                       td.static_scene.get_used_block_count()),
                 words=(np.array(jd.static_scene.state.tsdf_w),
-                       td.static_scene.state.tsdf_w.numpy().copy())))
+                       td.static_scene.state.tsdf_w.numpy().copy()),
+                depth_mm=(np.array(ji.get_images()[1]),
+                          np.array(ti.get_images()[1])),
+                view_depth=(np.array(jd.static_scene._view_depth_m),
+                            td.static_scene._view_depth_m.numpy().copy())))
         assert not td.process_frame(ti)
         previews = (jd.get_static_map_raycast_preview(
             preview=JPreview.COLOR),
@@ -193,7 +238,8 @@ def run_both(tmp_path_factory, cfg, n, dynamic, **build):
     assert fill and max(fill) < RENDER_CAND_K
     return dict(recs=recs, previews=previews, renders=renders,
                 dirs=(jdir, tdir),
-                dyn=(jd, td), root=root, icp=icp.calls)
+                dyn=(jd, td), root=root, icp=icp.calls,
+                maps=maps and maps.fused)
 
 
 def check_run(res, n):
@@ -248,30 +294,102 @@ def test_static_slice_matches_jax(tmp_path_factory):
         assert int(r["fusion-correct-3.00-kitti"]) >= 0.9 * ok > 0, r["frame"]
 
 
+def _jax_state(arrays):
+    from dynslam_tpu.ops import tsdf as jt
+    import jax.numpy as jnp
+
+    return jt.TsdfState(**{k: jnp.asarray(v) for k, v in arrays.items()})
+
+
+def render_witness(jeng, rec, call, what):
+    """(a) The render the port's ICP call tracked against, beside JAX's
+    Pallas raycast (interpret mode, ``RENDER_CAND_K`` candidates) of the
+    port's map that render came from, at the same pose, its visible blocks
+    listed at the pose the fusion set (as the prepare render reuses
+    them)."""
+    import dynslam_tpu.ops.pallas_raycast as jpr
+    from dynslam_tpu.ops import tsdf as jt
+    import jax.numpy as jnp
+
+    assert np.array_equal(rec["c2w"], call["c2w"]), what
+    js = _jax_state(rec["after"])
+    c2w = jnp.asarray(rec["c2w"])
+    origin = jt.compute_origin(jeng.cfg, c2w)
+    grid = jt.build_local_grid(jeng.cfg, js, origin)
+    slots, mask = jt.visible_blocks(jeng.cfg, js, grid, origin,
+                                    jnp.asarray(rec["w2c"]))
+    with pytest.MonkeyPatch.context() as mp:
+        fill = jax_kernel_renders(mp)
+        jr = jpr.raycast_tiled(jeng.cfg, js, slots, mask, origin, c2w,
+                               jnp.asarray(call["intr"]))
+        jax.effects_barrier()
+        assert fill and max(fill) < RENDER_CAND_K, what
+    check_render(jr, types.SimpleNamespace(depth=call["render"]), what)
+
+
+def map_witness(jeng, rec, what):
+    """(b) The port's map after fusing a frame, beside JAX's XLA fusion
+    (the rule K1 is held to) of the port's map before it, with the port's
+    view, pose and frame index: allocation exact, the words within
+    ``assert_map_close`` and, on these same inputs, equal word for word
+    (measured at 1-6 torch threads; one ulp of K1's 1/mu moves ~0.03% of
+    the observed words by a quantum)."""
+    import jax.numpy as jnp
+
+    jeng.state = _jax_state(rec["before"])
+    jeng.set_pose(rec["w2c"])
+    jeng.set_view_device(jnp.asarray(rec["rgb"]), jnp.asarray(rec["depth"]))
+    jeng.frame_idx = rec["fidx"]
+    jeng.integrate()
+    got = rec["after"]
+    for k in ("valid", "block_coords", "alloc_frame", "last_seen"):
+        assert np.array_equal(np.asarray(getattr(jeng.state, k)), got[k]), \
+            (what, k)
+    want = np.asarray(jeng.state.tsdf_w)
+    assert_map_close(want, got["tsdf_w"])
+    assert np.array_equal(want, got["tsdf_w"]), \
+        (what, int((want != got["tsdf_w"]).sum()))
+
+
 def test_icp_odometry_slice(tmp_path_factory):
     """``external_odometry`` off: ICP against the prepare render from frame
-    2 on, seeded at constant velocity; evaluation delay 0."""
+    2 on, seeded at constant velocity; evaluation delay 0. Frames 0-1 (no
+    ICP) are held to the JAX package's poses; from frame 2 every input of
+    every ICP call is held to JAX on the port's own state (the render
+    witness; the depth is the sequence's; the initial pose is the port's
+    own constant-velocity seed), the call itself to JAX's ``icp_track``,
+    the frame's pose to the call's result, and the map fused at that pose
+    to JAX's fusion (the map witness). The packages' pose gap is printed,
+    not bounded (``ICP_ATOL``'s comment says why)."""
     from dynslam_tpu.ops import icp as jicp
     import jax.numpy as jnp
 
     n = 4
     cfg = dataclasses.replace(CFG, external_odometry=False)
     res = run_both(tmp_path_factory, cfg, n, dynamic=False)
-    recs, calls = res["recs"], res["icp"]
+    recs, calls, maps = res["recs"], res["icp"], res["maps"]
     assert len(calls) == n - 2 and all(c["ok"] for c in calls)
     for c in calls:
         want = jicp.icp_track(*(jnp.asarray(c[k]) for k in (
             "depth", "points", "hit", "ref", "init", "intr")), stride=4)
         assert bool(want.success)
-        assert np.abs(np.asarray(want.world_to_cam) - c["out"]).max() <= 1e-4
+        assert np.abs(np.asarray(want.world_to_cam) - c["out"]).max() \
+            <= ICP_ATOL
+    jeng = res["dyn"][0].static_scene
+    gaps = []
     for f, r in enumerate(recs):
         a, b = r["poses"]
-        gap = MAX_POSE_GAP_M if f < 2 else MAX_ICP_POSE_GAP_M
-        assert np.abs(a[:3, 3] - b[:3, 3]).max() < gap, f
+        gaps.append(float(np.abs(a[:3, 3] - b[:3, 3]).max()))
+        if f < 2:
+            assert gaps[-1] < MAX_POSE_GAP_M, f
+            continue
         # the frame's pose is its ICP result, composed as the JAX package
         # composes it
-        if f >= 2:
-            assert np.allclose(b, calls[f - 2]["out"], atol=1e-6), f
+        call = calls[f - 2]
+        assert np.allclose(b, call["out"], atol=1e-6), f
+        render_witness(jeng, maps[f - 1], call, f"frame {f} render")
+        map_witness(jeng, maps[f], f"frame {f} map")
+    print("max |dt| port vs JAX by frame (m):", gaps)
     jdir, tdir = res["dirs"]
     assert sorted(os.listdir(jdir)) == sorted(os.listdir(tdir))
     for name in os.listdir(jdir):

@@ -10,14 +10,14 @@ volume), the static map; at the end the object volume, the CSVs
 import dataclasses
 
 import numpy as np
-import torch
 
 from dynslam_tpu.config import EvaluationParams
 
 from test_dynamic_pipeline import dynamic_config
 from test_torch_dynslam import check_run, run_both
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 N_FRAMES = 6
 _base = dynamic_config()

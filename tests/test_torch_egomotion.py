@@ -14,8 +14,9 @@ from dynslam_tpu_torch.ops import egomotion as te
 from torch_frontend_inputs import (
     CALIB, INTR, VO, jax_sample_ids, make_frames,
 )
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 
 @pytest.fixture(scope="module")

@@ -21,8 +21,9 @@ from dynslam_tpu_torch.eval import evaluation as tev
 from dynslam_tpu_torch.eval import fused_eval as tfe
 from dynslam_tpu_torch.eval import records as trec
 from dynslam_tpu_torch.ops import masks as tmasks
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 H, W = 64, 96
 FX, CX, CY, BASE = 80.0, 48.0, 32.0, 0.5

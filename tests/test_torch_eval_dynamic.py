@@ -13,7 +13,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from dynslam_tpu.config import (
     EvaluationParams, InstanceMapParams, Intrinsics, StereoCalibration,
@@ -36,8 +35,9 @@ from torch_frontend_inputs import (
     RENDER_CAND_K, jax_dynamic_sampler, jax_fused_evaluation,
     jax_kernel_renders, write_eval_sequence,
 )
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 W, H, N_FRAMES = 240, 160, 7
 INTR = Intrinsics(0.8 * W, 0.8 * W, W / 2.0, H / 2.0)

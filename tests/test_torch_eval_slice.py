@@ -30,8 +30,9 @@ from torch_frontend_inputs import (
     RENDER_CAND_K, jax_fused_evaluation, jax_kernel_renders, jax_sample_ids,
     write_eval_sequence,
 )
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 W, H, N_FRAMES = 160, 120, 5
 INTR = Intrinsics(0.8 * W, 0.8 * W, W / 2.0, H / 2.0)

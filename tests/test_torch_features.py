@@ -10,8 +10,9 @@ from dynslam_tpu.ops import features as jf
 from dynslam_tpu_torch.ops import features as tf
 
 from torch_frontend_inputs import VO, make_frames
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 
 @pytest.fixture(scope="module")

@@ -26,8 +26,9 @@ from dynslam_tpu_torch.utils.se3 import rotation_angle
 
 from test_torch_integrate import assert_colors_close
 from torch_frontend_inputs import jax_sample_ids
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 W, H = 192, 96
 N_FRAMES = 4

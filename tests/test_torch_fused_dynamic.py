@@ -27,8 +27,9 @@ from test_torch_integrate import assert_colors_close
 from torch_frontend_inputs import (
     dynamic_slice_config, jax_dynamic_sampler, make_dynamic_frames,
 )
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 CROPS = {"full": (256, 512), "crop64x96": (64, 96)}
 

@@ -9,7 +9,6 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-import torch
 
 from dynslam_tpu_torch.config import InstanceMapParams
 from dynslam_tpu_torch.io import segmentation as tseg
@@ -19,8 +18,9 @@ from test_torch_fused_dynamic import check_step, run_pair
 from torch_frontend_inputs import (
     dynamic_slice_config, jax_dynamic_sampler, make_dynamic_frames,
 )
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 
 def _run_port(cfg, frames):

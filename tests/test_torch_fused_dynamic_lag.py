@@ -22,8 +22,9 @@ from torch_frontend_inputs import (
     DYN_FRAMES, dynamic_slice_config, jax_dynamic_sampler,
     make_dynamic_frames,
 )
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 #: the JAX dispatch whose input carry is carried across (the carry after
 #: frame 3)

@@ -11,8 +11,9 @@ from dynslam_tpu.ops import icp as ji
 from dynslam_tpu_torch.ops import icp as ti
 
 from torch_frontend_inputs import H, INTR, W, make_frames
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 
 @pytest.fixture(scope="module")

@@ -14,8 +14,9 @@ from dynslam_tpu_torch.ops import integrate as ti
 from dynslam_tpu_torch.ops import tsdf as tt
 
 from test_torch_tsdf import _cfg, views  # noqa: F401  (fixture)
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 
 def _fuse_both(views, cfg_j):
@@ -62,6 +63,20 @@ def assert_colors_close(ref: np.ndarray, got: np.ndarray):
           for s in (16, 8, 0)]
     close = np.maximum.reduce(ch) <= 1
     assert close.mean() >= 0.995, close.mean()
+
+
+@pytest.mark.parametrize("use_depth_weighting", [False, True])
+def test_integrate_ref_words_equal_jax(views, use_depth_weighting):  # noqa: F811
+    """On the same views and poses the twin's words equal XLA's word for
+    word, depth weighting included: its ``max_depth / d`` is a true
+    division there, not a reciprocal times the scalar (which parted 83
+    words of this scene by a quantum)."""
+    import dataclasses
+
+    cfg_j = dataclasses.replace(_cfg(),
+                                use_depth_weighting=use_depth_weighting)
+    jn, tn = _fuse_both(views, cfg_j)
+    assert np.array_equal(jn["tsdf_w"], tn["tsdf_w"])
 
 
 @pytest.mark.parametrize("use_depth_weighting", [False, True])

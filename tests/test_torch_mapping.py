@@ -12,7 +12,6 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from dynslam_tpu.config import (
     DynSlamConfig, Intrinsics, MapParams, SceneParams, VoxelDecayParams,
@@ -25,8 +24,9 @@ from dynslam_tpu_torch.pipeline import mapping as tm
 
 from test_torch_eval import to_port
 from torch_frontend_inputs import RENDER_CAND_K, jax_kernel_renders
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 W, H, N = 160, 120, 4
 INTR = Intrinsics(0.8 * W, 0.8 * W, W / 2.0, H / 2.0)

@@ -21,8 +21,9 @@ from dynslam_tpu_torch.ops import tsdf as tt
 from dynslam_tpu_torch.viz import meshing as tmesh
 
 from test_torch_tsdf import _cfg, _np, make_views
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 W, H = 128, 96
 INTR = Intrinsics(110.0, 110.0, W / 2, H / 2)

@@ -29,8 +29,9 @@ from dynslam_tpu.models import dispnet as jd
 from dynslam_tpu_torch import convert
 from dynslam_tpu_torch.models import dispnet as td
 from test_torch_fused import assert_map_close
+from torch_threads import threads
 
-torch.set_num_threads(1)
+torch_threads = threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MIN_HIT_AGREE, MAX_MEDIAN_GAP_M = 0.999, 1e-5

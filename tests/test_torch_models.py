@@ -27,8 +27,9 @@ from dynslam_tpu_torch import convert
 from dynslam_tpu_torch.models import dispnet as td
 from dynslam_tpu_torch.models import segnet as ts
 from dynslam_tpu_torch.models.layers import same_pads
+from torch_threads import threads
 
-torch.set_num_threads(1)
+torch_threads = threads(1)
 
 SIZES = [(75, 101), (64, 96)]
 FWD_ATOL = 1e-5

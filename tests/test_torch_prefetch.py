@@ -9,7 +9,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from dynslam_tpu_torch import main
 from dynslam_tpu_torch.config import StereoCalibration
@@ -17,8 +16,9 @@ from dynslam_tpu_torch.io.depth_providers import PrecomputedDepthProvider
 from dynslam_tpu_torch.io.input import Input, kitti_odometry_config
 from dynslam_tpu_torch.io.prefetch import PrefetchingInput
 from dynslam_tpu_torch.io.synthetic import write_kitti_sequence
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 W, H, N = 160, 120, 4
 

@@ -15,8 +15,9 @@ from dynslam_tpu_torch.ops import raycast as tr
 from dynslam_tpu_torch.ops import tsdf as tt
 
 from test_pallas_raycast import _cfg, _fuse_frames
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 
 def _port_raycast(cfg_j, state_j, origin, slots, mask, c2w):

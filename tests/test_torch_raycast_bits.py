@@ -19,8 +19,9 @@ from dynslam_tpu_torch.ops import tsdf as tt
 from dynslam_tpu_torch.utils import se3
 
 from test_pallas_raycast import _cfg, _fuse_frames
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 
 def _dense_map(cfg):

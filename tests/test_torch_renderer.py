@@ -9,7 +9,6 @@ preview; measured 0.9883 there)."""
 import cv2
 import numpy as np
 import pytest
-import torch
 
 from dynslam_tpu.pipeline.mapping import PreviewType as JPreview
 from dynslam_tpu.viz import renderer as jr
@@ -19,8 +18,9 @@ from dynslam_tpu_torch.viz import renderer as tr
 
 from test_torch_mapping import MIN_PREVIEW_EQUAL, _run
 from torch_frontend_inputs import RENDER_CAND_K, jax_kernel_renders
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 N_ORBIT, CHASE_EVERY = 4, 2
 

@@ -31,16 +31,12 @@ from dynslam_tpu_torch.scripts import (
 from test_torch_fused_dynamic import assert_words_after
 from test_torch_integrate import assert_colors_close
 from torch_frontend_inputs import dynamic_slice_config
+from torch_threads import threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(autouse=True)
-def two_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
+torch_threads = threads(2)
 
 
 def _jax_script(name, *args):

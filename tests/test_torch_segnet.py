@@ -33,8 +33,9 @@ from dynslam_tpu_torch.io.synthetic import (
 )
 from dynslam_tpu_torch.models import segnet as ts
 from dynslam_tpu_torch.utils import msgpack
+from torch_threads import threads
 
-torch.set_num_threads(1)
+torch_threads = threads(1)
 
 W, H = 96, 64
 INTR = Intrinsics(0.8 * W, 0.8 * W, W / 2, H / 2)

@@ -15,13 +15,13 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from dynslam_tpu_torch.config import (
     MapParams, SceneParams, StereoMatcherParams, VisualOdometryParams,
 )
 from dynslam_tpu_torch.scripts import soak
 from dynslam_tpu_torch.scripts.bench_setup import render_sets
+from torch_threads import threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, LAPS = 160, 96, 3
@@ -34,12 +34,7 @@ def failures(msgs):
     return [m for m in msgs if not m.startswith("FPS decayed")]
 
 
-@pytest.fixture(autouse=True)
-def two_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
+torch_threads = threads(2)
 
 
 def small(config, **tracker):

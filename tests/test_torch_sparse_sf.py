@@ -21,8 +21,9 @@ from dynslam_tpu_torch.pipeline.sparse_sf import (
 
 from test_torch_eval import to_port
 from torch_frontend_inputs import CALIB, H, INTR, VO, W, jax_sample_ids
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 #: the two packages' flows agree to float order (LK refinement of the same
 #: matches); motions after the same draws to 1e-4 (two Gauss-Newton

@@ -11,8 +11,9 @@ from dynslam_tpu.ops import stereo as js
 from dynslam_tpu_torch.ops import stereo as ts
 
 from torch_frontend_inputs import make_frames
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 
 @pytest.fixture(scope="module")

@@ -14,8 +14,9 @@ from dynslam_tpu.ops import tsdf as jt
 from dynslam_tpu_torch import convert
 from dynslam_tpu_torch.ops import tsdf as tt
 from dynslam_tpu_torch.ops.integrate import integrate_ref
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 W, H = 256, 160
 INTR = Intrinsics(140.0, 140.0, W / 2, H / 2)

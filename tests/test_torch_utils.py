@@ -9,8 +9,9 @@ import torch
 
 from dynslam_tpu.utils import se3 as js
 from dynslam_tpu_torch.utils import se3 as ts
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 
 @pytest.fixture(scope="module")

@@ -11,22 +11,16 @@ import re
 import subprocess
 import sys
 
-import pytest
-import torch
 
 from dynslam_tpu_torch.scripts import vo_diag, vo_drift
+from torch_threads import threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = 8
 MAX_DRIFT_GAP_PCT, MAX_M_GAP, MAX_PX_GAP = 0.1, 5e-3, 0.01
 
 
-@pytest.fixture(autouse=True)
-def two_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
+torch_threads = threads(2)
 
 
 def _numbers(text, pattern):

@@ -26,8 +26,9 @@ from test_torch_mapping import (
     assert_states, check_render, staged_views,
 )
 from torch_frontend_inputs import RENDER_CAND_K, jax_kernel_renders
+from torch_threads import threads
 
-torch.set_num_threads(2)
+torch_threads = threads(2)
 
 W, H, N, S = 160, 120, 3, 3
 INTR = Intrinsics(0.8 * W, 0.8 * W, W / 2.0, H / 2.0)

@@ -47,13 +47,19 @@ def state_numpy(state_dict) -> dict:
 
 
 def single_device_steps(steps: int = STEPS) -> dict:
-    """The unsharded reference: ``steps`` Adam steps on the global batch."""
+    """The unsharded reference: ``steps`` Adam steps on the global batch,
+    at 1 torch thread as the gloo ranks run; the caller's count is
+    restored."""
+    before = torch.get_num_threads()
     torch.set_num_threads(1)
-    model = dispnet_model()
-    step = dispnet.make_train_step(
-        model, torch.optim.Adam(model.parameters(), lr=LR))
-    batch = dispnet_batch()
-    losses = [float(step(batch)) for _ in range(steps)]
+    try:
+        model = dispnet_model()
+        step = dispnet.make_train_step(
+            model, torch.optim.Adam(model.parameters(), lr=LR))
+        batch = dispnet_batch()
+        losses = [float(step(batch)) for _ in range(steps)]
+    finally:
+        torch.set_num_threads(before)
     return dict(losses=losses, params=state_numpy(model.state_dict()))
 
 
