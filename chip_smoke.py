@@ -185,7 +185,36 @@ and never prints its last line):
     march at frame 10 against their twins. Each run prints its frame rate,
     host syncs, used and dropped blocks, peak memory and drift.
 
-Phases 3, 4, 7, 9, 12, 14, 15 and 17-19 also print each kernel's times:
+20. the fused CLI (``main --fused``) and the KITTI tracking layout:
+    (a) phase 5's 8 frames written as a folder as phase 13 writes its
+    own, then ``--fused --no-dynamic_mode --enable_evaluation
+    --dump_previews_every 4 --save_mesh``: trajectory rows and drift (<=
+    2%), the unified bucket's KITTI-rule share >= 0.9 from frame 2, the
+    hit fraction (> 0.5), no dropped blocks, one launch of each kernel a
+    fused frame, the preview and the mesh; the CLI's steady-state line
+    beside phase 5's frame rate, peak memory, and a sync census of one
+    turn of the CLI's frame loop (frame 2, from its read to the next),
+    which has no site in ``main.py`` and, the input uploads apart, phase
+    5's sites; (b) the same run split with ``--frame_limit 4
+    --checkpoint_out`` and resumed with ``--resume_from``: the trajectory
+    and the used blocks equal (a)'s (the checkpoint keeps the RANSAC
+    generator's state), and K1, the pre-pass and K2 on the resumed map
+    against their twins; (c) the dynamic fused CLI on phase 13's folder with
+    ``--enable_evaluation --save_object_meshes``, with and without
+    ``--prefetch``: outputs byte-identical, a Dynamic track with a volume
+    of > 100 blocks, no pending crop after ``finalize``, 5 CSVs, the
+    static bucket's share >= 0.9 from frame 2, and frame 3's census
+    against phase 8's; (d) phase 13's folder re-laid as KITTI tracking
+    sequence 0 (``tests/torch_tracking_layout.py``: the tracking folders,
+    ``calib/0000.txt`` with ``R_rect`` and ``Tr_velo_cam``, the tracklets
+    as ``label_02/0000.txt``); (e) the staged CLI over it at phase 13's
+    flags with ``--dataset_type kitti-tracking``: the trajectory within 1
+    mm of phase 13's, the depth CSVs within max(5, 3%) under the preset's
+    names, and ``TrackingEvaluation`` fed each frame (finite errors); (f)
+    the dynamic fused CLI over it: (c)'s checks, and its outputs equal
+    (c)'s byte for byte.
+
+Phases 3, 4, 7, 9, 12, 14, 15 and 17-20 also print each kernel's times:
 the bare kernel (its prepared C call alone, no Python conversion between
 launches), warm (50 back-to-back launches between two CUDA events) and
 cold (the L2
@@ -263,6 +292,9 @@ PLAIN_MARCH_REPS = 1
 RAYCAST_STAGE_MAX_LAUNCHES = 8
 #: kernel sources under dynslam_tpu_torch/csrc/
 KERNEL_SOURCES = ("integrate", "raycast")
+#: a fused run's last render: the share of pixels that hit the map, at
+#: least (``PERF.md`` §2)
+MIN_HIT_FRACTION = 0.5
 
 
 def say(phase: str, msg: str) -> None:
@@ -827,44 +859,64 @@ def check_raycast(cfg, scene, flush, parent=None, kernel_reps: int = 20,
 # ---------------------------------------------------------------------------
 
 
-def count_syncs(fn):
-    """Run ``fn`` with CUDA sync-debug warnings on; returns the Counters
-    of the synchronising call sites (file:line and source) of the calling
-    (frame) thread and of every other thread (the evaluation's worker).
-    Sync-debug mode is process-wide, so each warning is filed by the
-    thread that raised it."""
-    import threading
+class SyncCensus:
+    """CUDA sync-debug warnings from ``start()`` to ``stop()``, filed by
+    the thread that raised them: ``own`` the calling (frame) thread's,
+    ``other`` every other thread's (the evaluation's worker, the reader),
+    each a Counter of the synchronising call sites (file:line and
+    source). Sync-debug mode is process-wide."""
 
-    import torch
+    def start(self):
+        import threading
 
-    caught = []
-    frame_thread = threading.get_ident()
+        import torch
 
-    def record(message, category, filename, lineno, file=None, line=None):
-        caught.append((threading.get_ident() == frame_thread, message,
-                       filename, lineno))
+        self.caught, self.own, self.other = [], Counter(), Counter()
+        frame_thread = threading.get_ident()
 
-    with warnings.catch_warnings():
+        def record(message, category, filename, lineno, file=None,
+                   line=None):
+            self.caught.append((threading.get_ident() == frame_thread,
+                                message, filename, lineno))
+
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def stop(self):
+        import torch
+
         try:
-            fn()
-        finally:
             torch.cuda.set_sync_debug_mode("default")
-    own, other = Counter(), Counter()
-    for on_frame_thread, message, filename, lineno in caught:
-        line = linecache.getline(filename, lineno).strip()
-        # switching the mode back is reported too: not the frame's
-        if "synchroniz" in str(message) \
-                and "set_sync_debug_mode" not in line:
-            path = Path(filename)
-            try:
-                path = path.resolve().relative_to(ROOT)
-            except ValueError:
-                pass
-            (own if on_frame_thread else other)[
-                f"{path}:{lineno} `{line}`"] += 1
+        finally:
+            self._warnings.__exit__(None, None, None)
+        for on_frame_thread, message, filename, lineno in self.caught:
+            line = linecache.getline(filename, lineno).strip()
+            # switching the mode back is reported too: not the frame's
+            if "synchroniz" in str(message) \
+                    and "set_sync_debug_mode" not in line:
+                path = Path(filename)
+                try:
+                    path = path.resolve().relative_to(ROOT)
+                except ValueError:
+                    pass
+                (self.own if on_frame_thread else self.other)[
+                    f"{path}:{lineno} `{line}`"] += 1
+        return self.own, self.other
+
+
+def count_syncs(fn):
+    """Run ``fn`` under a ``SyncCensus``; returns its Counters of the
+    synchronising call sites of the calling (frame) thread and of every
+    other thread (the evaluation's worker)."""
+    census = SyncCensus().start()
+    try:
+        fn()
+    finally:
+        own, other = census.stop()
     return own, other
 
 
@@ -965,7 +1017,7 @@ def check_slice(res, n_frames: int, config) -> dict:
         raise AssertionError("non-finite pose or raycast depth")
     if recs[-1]["used"] <= 3000:
         raise AssertionError(f"only {recs[-1]['used']} blocks in the map")
-    if recs[-1]["hit"] <= 0.5:
+    if recs[-1]["hit"] <= MIN_HIT_FRACTION:
         raise AssertionError(f"raycast hit fraction {recs[-1]['hit']:.3f}")
     if not any(r["decay"] for r in recs):
         raise AssertionError("decay never ran")
@@ -1550,14 +1602,17 @@ def write_staged_sequence(config, frames, root: Path) -> float:
     """Phase 8's frames as a KITTI-odometry folder under ``root``, written
     with the port's writers: the colour pair (the gray frames in three
     channels), the ELAS depth dumps of the rendered depth, the MNC dumps of
-    the dynamic boxes, ``calib.txt``, the ground-truth poses and LIDAR as
-    phase 10 writes it. Returns the mean LIDAR points a scan."""
+    the dynamic boxes, ``calib.txt``, the ground-truth poses, LIDAR as
+    phase 10 writes it and the dynamic boxes' KITTI tracking labels
+    (``tracklets.txt``, as ``write_kitti_sequence`` writes them). Returns
+    the mean LIDAR points a scan."""
     import shutil
 
     import numpy as np
 
     from dynslam_tpu_torch.io import synthetic as syn
     from dynslam_tpu_torch.io.calib import write_kitti_poses
+    from dynslam_tpu_torch.scripts.bench_setup import bench_scene
 
     shutil.rmtree(root, ignore_errors=True)
     pts = write_lidar(config, frames, root)
@@ -1566,13 +1621,21 @@ def write_staged_sequence(config, frames, root: Path) -> float:
         (root / sub).mkdir(parents=True, exist_ok=True)
     write_kitti_poses(str(root / "ground-truth-poses.txt"),
                       frames["poses"].astype(np.float64))
+    scene = syn.SyntheticScene.default_scene(**bench_scene(True))
+    labels = []
     for f in range(frames["left"].shape[0]):
         objid = frames["objid"][f]
+        ids = [int(k) for k in np.unique(objid) if k > 0]
         syn.write_kitti_frame(
             str(root), f, np.repeat(frames["left"][f][..., None], 3, -1),
             np.repeat(frames["right"][f][..., None], 3, -1),
-            frames["depth"][f],
-            object_masks=[objid == k for k in np.unique(objid) if k > 0])
+            frames["depth"][f], object_masks=[objid == k for k in ids])
+        # the ids are box indices + 1
+        labels += syn.tracklet_lines(
+            scene, f, frames["poses"][f].astype(np.float64),
+            [(k - 1, objid == k) for k in ids])
+    if labels:
+        (root / "tracklets.txt").write_text("\n".join(labels) + "\n")
     return pts
 
 
@@ -1583,10 +1646,11 @@ class StagedProbe:
     and the wall time, the host syncs of one frame; the tinted pixels of
     each composited colour preview; the flush over the most volumes
     (``FusionRecorder``) for phase 14. Launches made between frames (the
-    previews) count in the totals only."""
+    previews) count in the totals only. ``on_frame(dyn, n)`` is called
+    after each frame ``n`` the pipeline processed."""
 
-    def __init__(self, census_frame: Optional[int] = None):
-        self.census_frame = census_frame
+    def __init__(self, census_frame: Optional[int] = None, on_frame=None):
+        self.census_frame, self.on_frame = census_frame, on_frame
         self.frames, self.tinted, self.census = {}, [], Counter()
         self.dyn, self.pool_renders = None, 0
 
@@ -1673,10 +1737,12 @@ class StagedProbe:
                             default=0),
                 **dict(zip(("k1", "pre", "march", "flushes", "pool"),
                            (a - b for a, b in zip(self._counts(), before)))))
+            if self.on_frame is not None:
+                self.on_frame(dyn, n)
         return out[0]
 
 
-def run_cli(args, census_frame=None) -> StagedProbe:
+def run_cli(args, census_frame=None, on_frame=None) -> StagedProbe:
     """``dynslam_tpu_torch.main.main(args)`` in this process under a
     ``StagedProbe``; the kernels' launch counts are set to 0 just before
     and read just after."""
@@ -1687,7 +1753,7 @@ def run_cli(args, census_frame=None) -> StagedProbe:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    with StagedProbe(census_frame) as probe:
+    with StagedProbe(census_frame, on_frame) as probe:
         t0 = time.perf_counter()
         rc = cli.main([str(a) for a in args])
         probe.wall_s = time.perf_counter() - t0
@@ -3416,6 +3482,552 @@ def run_phase19(base, sdir: Path, dconfig, frames, flush, parent) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the fused CLI (main --fused: evaluation, previews, meshes,
+# checkpoints, resume, prefetching input) and the KITTI tracking layout
+# ---------------------------------------------------------------------------
+
+#: 20b: the checkpoint's frame of the static fused CLI's split run (phase
+#: 5's 8 frames); the resumed run must equal the continuous one (the
+#: checkpoint keeps the RANSAC generator's state)
+FUSED_SPLIT = 4
+#: 20e: the staged run over the tracking folder against phase 13's over the
+#: odometry folder it came from (the trajectory's entries, m)
+TRACKING_POSE_ATOL = 1e-3
+#: the slice tests' CSV rule: a field within max(5, 3% of the frame's
+#: evaluated points of its bucket)
+CSV_SLACK_N, CSV_SLACK_SHARE = 5, 0.03
+#: the tracking layout's sequence id
+TRACKING_SEQ = 0
+
+
+def source_site(fn, text: str) -> str:
+    """The census key of the first line of ``fn`` that holds ``text``."""
+    import inspect
+
+    fn = inspect.unwrap(fn)
+    lines, start = inspect.getsourcelines(fn)
+    i = next(i for i, ln in enumerate(lines) if text in ln)
+    path = Path(inspect.getsourcefile(fn)).resolve().relative_to(ROOT)
+    return f"{path}:{start + i} `{lines[i].strip()}`"
+
+
+def split_census(census: Counter, reference: Counter, what: str) -> dict:
+    """A fused CLI frame's frame-thread syncs: none in ``main.py``; the
+    input uploads (``pipeline/fused.py::_to_device``: the frame thread's
+    blocking copy of a host frame, one sync a copy) apart; the rest equal,
+    site by site, to ``reference`` (the same pipeline's census, fed
+    device tensors). A ``device.constant``'s first use in the process
+    syncs once, wherever it falls, so that site is left out of both."""
+    from dynslam_tpu_torch import device
+    from dynslam_tpu_torch.pipeline import fused
+
+    first_use = source_site(device._constant, "torch.tensor(")
+    upload = source_site(fused._to_device, "x.to(")
+    cli = Counter({k: v for k, v in census.items()
+                   if k.startswith("dynslam_tpu_torch/main.py:")})
+    uploads = census[upload]
+    drop = Counter({upload: uploads, first_use: census[first_use]})
+    rest = census - cli - drop
+    ref = reference - Counter({first_use: reference[first_use]})
+    if cli:
+        raise AssertionError(f"{what}: host syncs in main.py {dict(cli)}")
+    if rest != ref:
+        raise AssertionError(
+            f"{what}: the pipeline's host syncs {dict(rest.most_common())}, "
+            f"the bare pipeline's {dict(ref.most_common())}")
+    return dict(uploads=uploads, rest=sum(rest.values()),
+                first_use=census[first_use] + reference[first_use])
+
+
+class FusedProbe:
+    """Instruments ``main.run_fused`` while it runs: keeps what
+    ``build_fused`` returns (pipeline, input, segmentation provider),
+    times each turn of the CLI's frame loop (from a frame's read to the
+    next frame's: ``turns[frame] = (turn ms, ms in process_frame)``, host
+    clock, no synchronisation added) and takes a ``SyncCensus`` over the
+    turn of frame ``census_frame``."""
+
+    def __init__(self, census_frame: Optional[int] = None):
+        self.census_frame = census_frame
+        self.pipe = self.input = self.segp = self._running = None
+        self.census, self.worker = Counter(), Counter()
+        self.turns, self._turn = {}, None
+
+    def __enter__(self):
+        from dynslam_tpu_torch.pipeline import builder
+
+        self._build = builder.build_fused
+        probe = self
+
+        def build_fused(*args, **kw):
+            built = probe._build(*args, **kw)
+            probe.pipe, probe.input, probe.segp = built
+            probe._wrap(*built[:2])
+            return built
+
+        builder.build_fused = build_fused
+        return self
+
+    def _wrap(self, pipe, inp):
+        read, process = inp.read_next_frame, pipe.process_frame
+
+        def read_next_frame():
+            now = time.perf_counter()
+            self._stop()
+            if self._turn is not None:
+                frame, t0, step = self._turn
+                self.turns[frame] = ((now - t0) * 1e3, step)
+            frame = inp.frame_idx - inp.frame_offset
+            self._turn = [frame, now, 0.0]
+            if frame == self.census_frame:
+                self._running = SyncCensus().start()
+            return read()
+
+        def process_frame(*args, **kw):
+            t0 = time.perf_counter()
+            process(*args, **kw)
+            if self._turn is not None:
+                self._turn[2] += (time.perf_counter() - t0) * 1e3
+
+        inp.read_next_frame = read_next_frame
+        pipe.process_frame = process_frame
+
+    def turn_text(self, frames) -> str:
+        """Median host ms a loop turn over ``frames``, and of it in
+        ``process_frame`` and elsewhere (the read, the gray conversion,
+        the segmentation dump, the evaluation's submit, previews)."""
+        turn = statistics.median(self.turns[f][0] for f in frames)
+        step = statistics.median(self.turns[f][1] for f in frames)
+        return (f"a loop turn {turn:.1f} ms (median, frames {frames.start}-"
+                f"{frames.stop - 1}): {step:.1f} in process_frame, "
+                f"{turn - step:.1f} outside it")
+
+    def _stop(self):
+        if self._running is not None:
+            self.census, self.worker = self._running.stop()
+            self._running = None
+
+    def __exit__(self, *exc):
+        from dynslam_tpu_torch.pipeline import builder
+
+        self._stop()
+        builder.build_fused = self._build
+
+
+def run_fused_cli(args, census_frame: Optional[int] = None) -> FusedProbe:
+    """``dynslam_tpu_torch.main.main(args)`` (``--fused``) in this process
+    under a ``FusedProbe``, its standard output kept; the kernels' launch
+    counts are set to 0 just before and read just after."""
+    import re
+
+    import torch
+
+    from dynslam_tpu_torch import main as cli
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    tee = Tee(sys.stdout)
+    with FusedProbe(census_frame) as probe, contextlib.redirect_stdout(tee):
+        t0 = time.perf_counter()
+        rc = cli.main([str(a) for a in args])
+        probe.wall_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"dynslam_tpu_torch.main exited {rc}")
+    probe.launches = launch_counts()
+    probe.held_gb = held / 1e9
+    probe.peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    probe.text = tee.text
+    m = re.search(r"\[steady-state: .*\]", tee.text)
+    probe.fps_line = m.group(0) if m else "no steady-state line"
+    return probe
+
+
+def check_fused_cli(probe, frames, out: Path, dynamic: bool,
+                    reference: Optional[Counter] = None) -> dict:
+    """20a/20c/20f: trajectory rows and drift, no dropped blocks, the render's
+    hit fraction, the evaluation's CSVs (every frame from 1, the KITTI-rule
+    correct share >= 0.9 from frame 2: the unified bucket static, the
+    static bucket dynamic), and, with ``reference``, the frame-thread
+    census against it; dynamic: a Dynamic track with a volume of > 100
+    blocks and no pending crop left after ``finalize``."""
+    import numpy as np
+
+    from dynslam_tpu_torch.instances.track import TrackState
+    from dynslam_tpu_torch.io.calib import read_kitti_poses
+
+    pipe, n = probe.pipe, frames["left"].shape[0]
+    traj = read_kitti_poses(str(out / "trajectory.txt"))
+    if traj.shape[0] != n:
+        raise AssertionError(f"trajectory rows {traj.shape[0]} != {n}")
+    travelled = SPEED * (n - 1)
+    err = float(np.linalg.norm(traj[-1][:3, 3]
+                               - frames["poses"][n - 1][:3, 3]))
+    if not err <= 0.02 * travelled:
+        raise AssertionError(f"final pose error {err:.3f} m > 2% of "
+                             f"{travelled:.1f} m")
+    dropped = pipe.get_dropped_allocation_count()
+    if dropped:
+        raise AssertionError(f"{dropped} blocks dropped")
+    hit = pipe.last_outputs.raycast.hit.double().mean().item()
+    if not hit > MIN_HIT_FRACTION:
+        raise AssertionError(f"raycast hit fraction {hit:.3f}")
+    keys = ("unified", "static", "dynamic", "memory") \
+        + (("tracker",) if dynamic else ())
+    files = eval_files(pipe.evaluation, keys)
+    if len(os.listdir(out / "csv")) != len(keys):
+        raise AssertionError(f"CSVs {sorted(os.listdir(out / 'csv'))}")
+    bucket = "static" if dynamic else "unified"
+    shares = {int(r["frame"]): kitti_share(r) for r in files[bucket]}
+    low = {f: v for f, v in shares.items()
+           if f >= 2 and v < MIN_KITTI_CORRECT}
+    if sorted(shares) != list(range(1, n)) or low:
+        raise AssertionError(f"{bucket} bucket: rows {sorted(shares)}, "
+                             f"KITTI-rule share below {MIN_KITTI_CORRECT} "
+                             f"on {low}")
+    res = dict(err=err, travelled=travelled, hit=hit, shares=shares,
+               blocks=pipe.get_used_block_count(), files=files)
+    if reference is not None:
+        res["census"] = split_census(probe.census, reference,
+                                     f"fused CLI frame {probe.census_frame}")
+    if dynamic:
+        recon = [(t.id, t.state.value, t.reconstruction
+                  .get_used_block_count())
+                 for t in pipe.tracker.active_tracks.values()
+                 if t.has_reconstruction()]
+        if not any(s == TrackState.DYNAMIC.value and b > 100
+                   for _, s, b in recon):
+            raise AssertionError(f"no Dynamic track with a volume of > 100 "
+                                 f"blocks: {recon}")
+        if (pipe.carry.pending_depth > 0).any() \
+                or (pipe.carry.prev_pending_depth > 0).any():
+            raise AssertionError("pending crops left after finalize")
+        res["recon"] = recon
+    return res
+
+
+def same_outputs(a: Path, b: Path, names=None) -> list:
+    """The files two CLI runs wrote (the trajectory, every CSV, every OBJ),
+    equal byte for byte; returns their names. ``names`` maps ``a``'s CSV
+    names to ``b``'s where the dataset identifier parts them."""
+    import filecmp
+
+    files = ["trajectory.txt"] + sorted(
+        p.name for p in a.glob("*.obj")) + [
+        f"csv/{p.name}" for p in sorted((a / "csv").glob("*.csv"))]
+    differ = []
+    for f in files:
+        g = (names or {}).get(f, f)
+        if not (b / g).exists() or not filecmp.cmp(a / f, b / g,
+                                                   shallow=False):
+            differ.append(f)
+    if differ:
+        raise AssertionError(f"{b.name}: {differ} differ from {a.name}'s")
+    return files
+
+
+def csv_kinds(out: Path) -> dict:
+    """{``csv/<name>``: the name past the dataset identifier} of a run."""
+    return {f"csv/{p.name}": "-".join(p.name.split("-")[
+        -3 if "depth-result" in p.name else -1:])
+        for p in (out / "csv").glob("*.csv")}
+
+
+def tracking_names(odo: Path, trk: Path) -> dict:
+    """The odometry run's CSV names mapped to the tracking run's."""
+    kinds = {v: k for k, v in csv_kinds(trk).items()}
+    return {k: kinds[v] for k, v in csv_kinds(odo).items() if v in kinds}
+
+
+def close_depth_csvs(a: Path, b: Path, names: dict) -> dict:
+    """The depth CSVs of two runs, row by row: the same frames, every field
+    within max(5, 3% of the frame's evaluated points); returns the largest
+    gap by file kind."""
+    import csv
+
+    gaps = {}
+    for f, g in names.items():
+        if "depth-result" not in f:
+            continue
+        ra, rb = (list(csv.DictReader(open(p / x)))
+                  for p, x in ((a, f), (b, g)))
+        if [r["frame"] for r in ra] != [r["frame"] for r in rb]:
+            raise AssertionError(f"{g}: frames differ from {f}")
+        gap = 0
+        for x, y in zip(ra, rb):
+            slack = max(CSV_SLACK_N,
+                        CSV_SLACK_SHARE * int(x["input-total-0.50"]))
+            for col in x:
+                d = abs(int(x[col]) - int(y[col]))
+                if d > slack:
+                    raise AssertionError(f"{g} frame {x['frame']} {col}: "
+                                         f"{y[col]} vs {x[col]}")
+                gap = max(gap, d)
+        gaps[csv_kinds(a)[f]] = gap
+    return gaps
+
+
+def carry_scene(pipe, frames, device) -> dict:
+    """K1's and K2's inputs on a fused pipeline's map, as ``map_scene``
+    lays them out: the last step's pose and stereo depth with the last
+    frame's colour, that view allocated into a copy of the map and its
+    visible blocks listed, at the carry's frame index."""
+    import torch
+
+    from dynslam_tpu_torch.ops import tsdf
+    from dynslam_tpu_torch.utils.se3 import inverse
+
+    cfg, o = pipe.cfg, pipe.last_outputs
+    f = int(pipe.carry.frame_idx)
+    w2c = o.pose_w2c
+    c2w = inverse(w2c)
+    gray = torch.tensor(frames["left"][-1], device=device)
+    rgb = gray[..., None].expand(*gray.shape, 3).contiguous()
+    state = pipe.carry.state.clone()
+    origin = tsdf.compute_origin(cfg, c2w)
+    grid = tsdf.build_local_grid(cfg, state, origin)
+    state, grid, _ = tsdf.allocate(cfg, state, grid, origin, o.depth_m, c2w,
+                                   f)
+    slots, mask = tsdf.visible_blocks(cfg, state, grid, origin, w2c)
+    return dict(state=state, grid=grid, origin=origin, slots=slots,
+                mask=mask, rgb=rgb, depth=o.depth_m, w2c=w2c, c2w=c2w,
+                frame=f)
+
+
+def run_phase20(base, sdir: Path, config, dconfig, frames, dyn_frames, device,
+                flush, parent, refs) -> dict:
+    """Phase 20 (see the module docstring): the static fused CLI on phase
+    5's frames written as a folder, the rest on phase 13's folder
+    (``base``: its CLI arguments); ``refs``: phase 5's and phase 8's sync
+    censuses and frame rates, phase 13's continuous run. Returns what the
+    kernels line reports."""
+    import numpy as np
+    import torch
+
+    from dynslam_tpu_torch.eval.tracking_eval import TrackingEvaluation
+    from dynslam_tpu_torch.io.calib import read_kitti_poses
+    from dynslam_tpu_torch.io.tracklets import read_grouped_tracklets
+
+    sys.path.append(str(ROOT / "tests"))
+    from torch_tracking_layout import relayout_as_tracking
+
+    import shutil
+
+    t_phase, d = time.perf_counter(), sdir / "fused"
+    shutil.rmtree(d, ignore_errors=True)
+    # phase 5's frames (the static scene) as a folder: in static mode the
+    # cars of phase 13's scene would be fused into the map, and the LIDAR
+    # on them would count against the share phase 10 holds
+    spts = write_staged_sequence(config, frames, sdir / "static_seq")
+    n = frames["left"].shape[0]
+    static = ["--dataset_root", sdir / "static_seq"] + base[2:] + [
+        "--fused", "--no-dynamic_mode", "--enable_evaluation",
+        "--dump_previews_every", STAGED_PREVIEWS, "--save_mesh"]
+
+    # 20a. the static fused CLI, after the bare pipeline on the same
+    # frames (phase 5's way: frames fed as device tensors)
+    bare = check_slice(run_slice(config, frames, device, census_frame=None,
+                                 tag="fused-cli-bare"), n, config)["fps"]
+    a = run_fused_cli(static + ["--out", d / "static"],
+                      census_frame=CENSUS_FRAME)
+    ca = check_fused_cli(a, frames, d / "static", False,
+                         reference=refs["census"])
+    n_v, faces = read_obj(d / "static" / "static_map.obj")
+    previews = sorted(p.name for p in (d / "static").glob("frame*.png"))
+    want = [f"frame{k:06d}_{x}.png" for k in range(STAGED_PREVIEWS, n,
+                                                    STAGED_PREVIEWS)
+            for x in ("color", "depth")]
+    if sorted(want) != previews or len(faces) < MIN_STATIC_TRIS \
+            or faces.min() < 1 or faces.max() > n_v:
+        raise AssertionError(f"previews {previews}, mesh {len(faces)} "
+                             f"faces over {n_v} vertices")
+    fused = n - 1
+    if a.launches != dict(integrate=fused, candidates=fused, raycast=fused):
+        raise AssertionError(f"fused CLI launches {a.launches}, one a "
+                             f"fused frame expected ({fused})")
+    say("fused-cli", f"20a: main --fused --no-dynamic_mode over phase 5's "
+                     f"{n} frames as a folder ({spts:.0f} LIDAR points a "
+                     f"scan): launches {a.launches}; final pose error "
+                     f"{ca['err'] * 100:.2f} cm over {ca['travelled']:.1f} "
+                     f"m; hit {ca['hit']:.3f}; {ca['blocks']} blocks, 0 "
+                     f"dropped; KITTI-rule share "
+                     f"{ {f: round(v, 4) for f, v in ca['shares'].items()} }"
+                     f"; mesh {len(faces)} triangles; previews {previews};"
+                     f" peak memory {a.peak_gb - a.held_gb:.2f} GB above "
+                     f"the {a.held_gb:.2f} GB held before the run")
+    say("fused-cli", f"20a: {a.fps_line} (the bare pipeline fed device "
+                     f"tensors just before: {bare:.2f} FPS over the last "
+                     f"{FPS_FRAMES} frames; phase 5: {refs['fps']:.2f}); "
+                     f"{a.turn_text(range(3, n - 1))}; host syncs "
+                     f"on the frame thread in frame {CENSUS_FRAME}: "
+                     f"{sum(a.census.values())} {dict(a.census.most_common())}"
+                     f" (none in main.py; {ca['census']['uploads']} input "
+                     f"uploads, {ca['census']['first_use']} first uses of a"
+                     f" constant left out of both; the other "
+                     f"{ca['census']['rest']} equal to phase 5's, site by "
+                     f"site)")
+
+    # 20b. the same run split, resumed, and the kernels on the resumed map
+    ck, k = d / "split.npz", FUSED_SPLIT
+    split = run_fused_cli(static + ["--out", d / "split", "--frame_limit", k,
+                                    "--checkpoint_out", ck])
+    resumed = run_fused_cli(static + ["--out", d / "resumed",
+                                      "--resume_from", ck])
+    ta, ts, tr = (read_kitti_poses(str(d / x / "trajectory.txt"))
+                  for x in ("static", "split", "resumed"))
+    if ts.shape[0] != k or not np.array_equal(ts, ta[:k]) \
+            or tr.shape != ta.shape or not np.array_equal(tr[:k], ta[:k]):
+        raise AssertionError(f"split trajectories {ts.shape} / {tr.shape}: "
+                             f"the first {k} rows differ from 20a's")
+    if f"[resumed from {ck} at frame {k}]" not in resumed.text:
+        raise AssertionError(f"the resume did not go on from frame {k}")
+    gap = float(np.abs(tr - ta).max())
+    ua, ub = a.pipe.get_used_block_count(), resumed.pipe.get_used_block_count()
+    if gap or ua != ub:
+        raise AssertionError(f"resumed run: trajectory {gap:.3g} from 20a's,"
+                             f" used blocks {ub} vs {ua}")
+    scene = carry_scene(resumed.pipe, frames, device)
+    cfg = resumed.pipe.cfg
+    k1r = check_integrate(cfg, scene, flush, parent)
+    k2r = check_raycast(cfg, scene, flush, parent)
+    say("fused-cli", f"20b: --frame_limit {k} --checkpoint_out, then "
+                     f"--resume_from (at frame {k}): the trajectory and "
+                     f"the used blocks ({ub}) equal 20a's; launches "
+                     f"{split.launches} + {resumed.launches}")
+    say("K1-resumed", f"integrate vs integrate_ref on the resumed map at "
+                      f"frame {scene['frame']} ({k1r['blocks']} visible "
+                      f"blocks): {k1r['exact'] * 100:.4f}% words bit-exact,"
+                      f" max |dsdf| {k1r['max_abs_err']:.3g}, |dw| "
+                      f"{k1r['dw']} q, |dcolor| {k1r['dcolor']}")
+    say("K1-resumed", timing_text(k1r))
+    say("K2-resumed-pre", f"candidate bitmap equals candidate_bits_ref "
+                          f"exactly ({k2r['pre']['n_cand']} candidate cells "
+                          f"of {k2r['pre']['n_live']} visible blocks)")
+    say("K2-resumed-pre", timing_text(k2r["pre"]))
+    say("K2-resumed", f"raycast vs raycast_ref on the resumed map: hit "
+                      f"agreement {k2r['agree'] * 100:.4f}%, median "
+                      f"|ddepth| {k2r['median']:.3g} m, max "
+                      f"{k2r['max_abs_err']:.3g} m, points/colour/weight "
+                      f"equal on {k2r['epi_agree'] * 100:.4f}% of "
+                      f"equal-depth pixels, hit {k2r['hit']:.3f}; "
+                      f"{reads_text(k2r['reads'])}")
+    say("K2-resumed", timing_text(k2r))
+
+    # 20c. the dynamic fused CLI, with and without the reader thread
+    dyn = base + ["--fused", "--enable_evaluation", "--save_object_meshes"]
+    dbare = run_dynamic(dconfig, dyn_frames, device, d, census_frames=(),
+                        profile=False, tag="fused-cli-bare-dyn")["times"]
+    dbare = len(DYN_FPS_FRAMES) / (sum(dbare[i] for i in DYN_FPS_FRAMES)
+                                   / 1e3)
+    plain = run_fused_cli(dyn + ["--out", d / "dynamic"])
+    pre = run_fused_cli(dyn + ["--out", d / "dynamic_prefetch",
+                               "--prefetch"], census_frame=DYN_CENSUS_FRAME)
+    cc = check_fused_cli(pre, dyn_frames, d / "dynamic_prefetch", True,
+                         reference=refs["dcensus"])
+    same = same_outputs(d / "dynamic", d / "dynamic_prefetch")
+    say("fused-cli", f"20c: main --fused --enable_evaluation "
+                     f"--save_object_meshes --prefetch: launches "
+                     f"{pre.launches}; volumes {cc['recon']}; final pose "
+                     f"error {cc['err'] * 100:.2f} cm; hit {cc['hit']:.3f};"
+                     f" static bucket KITTI-rule share "
+                     f"{ {f: round(v, 4) for f, v in cc['shares'].items()} }"
+                     f"; {len(same)} outputs byte-identical to the run "
+                     f"without --prefetch; peak memory "
+                     f"{pre.peak_gb - pre.held_gb:.2f} GB above the "
+                     f"{pre.held_gb:.2f} GB held before the run")
+    say("fused-cli", f"20c: {pre.fps_line}, {pre.turn_text(DYN_FPS_FRAMES)}"
+                     f" (without --prefetch: {plain.fps_line}, "
+                     f"{plain.turn_text(DYN_FPS_FRAMES)}; the bare pipeline"
+                     f" just before: {dbare:.2f} FPS over frames 5-9, phase "
+                     f"8: {refs['dfps']:.2f}); "
+                     f"host syncs "
+                     f"on the frame thread in frame {DYN_CENSUS_FRAME}: "
+                     f"{sum(pre.census.values())} "
+                     f"{dict(pre.census.most_common())} (none in main.py; "
+                     f"{cc['census']['uploads']} input uploads, "
+                     f"{cc['census']['first_use']} first uses of a "
+                     f"constant left out of both; the other "
+                     f"{cc['census']['rest']} equal to phase 8's); other "
+                     f"threads {dict(pre.worker.most_common())}")
+
+    # 20d. phase 13's folder as KITTI tracking sequence 0
+    trk = Path(relayout_as_tracking(str(sdir / "seq"), str(sdir / "tracking"),
+                                    TRACKING_SEQ))
+    layout = ["--dataset_type", "kitti-tracking",
+              "--kitti_tracking_sequence_id", TRACKING_SEQ]
+    tbase = ["--dataset_root", trk] + base[2:] + layout
+    labels = trk / "label_02" / f"{TRACKING_SEQ:04d}.txt"
+    say("tracking", f"20d: phase 13's folder re-laid as KITTI tracking "
+                    f"sequence {TRACKING_SEQ}: "
+                    f"{sorted(p.name for p in trk.iterdir())}, "
+                    f"{len(labels.read_text().splitlines())} tracklet rows")
+
+    # 20e. the staged CLI over it, with tracking evaluation per frame
+    tev = TrackingEvaluation(read_grouped_tracklets(str(labels)))
+    records, held = [], torch.cuda.memory_allocated()
+    st = run_cli(tbase + ["--out", d / "staged_tracking",
+                          "--enable_evaluation", "--evaluation_delay",
+                          STAGED_DELAY, "--dump_previews_every",
+                          STAGED_PREVIEWS],
+                 on_frame=lambda dyn_, f: records.extend(
+                     tev.evaluate_frame(dyn_, f)))
+    te, t13 = (read_kitti_poses(str(p / "trajectory.txt"))
+               for p in (d / "staged_tracking", refs["staged_out"]))
+    tgap = float(np.abs(te - t13).max()) if te.shape == t13.shape \
+        else float("inf")
+    if tgap > TRACKING_POSE_ATOL:
+        raise AssertionError(f"staged tracking trajectory {te.shape}, "
+                             f"{tgap:.3g} from phase 13's")
+    names = tracking_names(refs["staged_out"], d / "staged_tracking")
+    if len(names) != 5 or not all(
+            f"kitti-tracking-sequence-{TRACKING_SEQ:04d}" in v
+            for v in names.values()):
+        raise AssertionError(f"tracking run's CSVs {names}")
+    cgaps = close_depth_csvs(refs["staged_out"], d / "staged_tracking",
+                             names)
+    errs = np.array([(r.trans_error, r.rot_error) for r in records])
+    if not records or not np.isfinite(errs).all():
+        raise AssertionError(f"tracking evaluation: {records}")
+    say("tracking", f"20e: the staged CLI --dataset_type kitti-tracking at "
+                    f"phase 13's flags: trajectory within {tgap:.3g} of "
+                    f"phase 13's; depth CSVs under the preset's names, "
+                    f"largest field gap by file {cgaps}; launches "
+                    f"{st.launches}; tracking evaluation: {len(records)} "
+                    f"records over frames "
+                    f"{sorted({r.frame_id for r in records})}, mean "
+                    f"translation error {errs[:, 0].mean():.4f} m, mean "
+                    f"rotation error {np.degrees(errs[:, 1].mean()):.4f} "
+                    f"deg; peak memory {st.peak_gb - held / 1e9:.2f} GB "
+                    f"above the {held / 1e9:.2f} GB held before the run")
+
+    # 20f. the dynamic fused CLI over it
+    tf = run_fused_cli(["--dataset_root", trk] + dyn[2:] + layout
+                       + ["--out", d / "dynamic_tracking"],
+                       census_frame=DYN_CENSUS_FRAME)
+    cf = check_fused_cli(tf, dyn_frames, d / "dynamic_tracking", True,
+                         reference=refs["dcensus"])
+    same_f = same_outputs(d / "dynamic", d / "dynamic_tracking",
+                          tracking_names(d / "dynamic",
+                                         d / "dynamic_tracking"))
+    say("tracking", f"20f: main --fused --dataset_type kitti-tracking, "
+                    f"dynamic: launches {tf.launches}; volumes "
+                    f"{cf['recon']}; static bucket KITTI-rule share "
+                    f"{ {f: round(v, 4) for f, v in cf['shares'].items()} }"
+                    f"; {len(same_f)} outputs byte-identical to 20c's run "
+                    f"over the odometry folder; {tf.fps_line}; host syncs "
+                    f"on the frame thread in frame {DYN_CENSUS_FRAME}: "
+                    f"{sum(tf.census.values())} (none in main.py; "
+                    f"{cf['census']['uploads']} input uploads, "
+                    f"{cf['census']['first_use']} first uses of a "
+                    f"constant left out of both; the other "
+                    f"{cf['census']['rest']} equal to phase 8's)")
+    say("fused-cli", f"phase 20 in {time.perf_counter() - t_phase:.1f} s")
+    return dict(a=a, split=split, resumed=resumed, pre=pre, st=st, tf=tf,
+                k1r=k1r, k2r=k2r)
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_kernels(parent: Optional[Path]) -> dict:
@@ -3906,6 +4518,12 @@ def main(argv=None) -> int:
     # 19. the staged CLI's depth-input and odometry options
     p19 = run_phase19(base, sdir, dconfig, dyn_frames, flush, parent)
 
+    # 20. the fused CLI and the KITTI tracking layout
+    p20 = run_phase20(base, sdir, config, dconfig, frames, dyn_frames, device,
+                      flush, parent, dict(
+        census=census, fps=sl["fps"], dcensus=dcensus, dfps=dyn["fps"],
+        staged_out=out))
+
     k1_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/integrate.cu",
                   replaces="dynslam_tpu/ops/pallas_integrate.py:536")
     k2_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/raycast.cu",
@@ -4038,10 +4656,36 @@ def main(argv=None) -> int:
         kernel_entry("raycast/staged-half-scale", k2_src, hl["raycast"],
                      hl["raycast"] / N_DYN, p19["hs"]["k2"]),
     ]
+    # phase 20's runs: the static fused CLI (20a) and its resumed split
+    # run (20b) with the times on the resumed map; the dynamic fused CLI
+    # (20c, with --prefetch) and its run over the tracking folder (20f)
+    # with the volume axis's and the object volume's times (phases 7 and
+    # 9); the staged run over the tracking folder (20e) with the static
+    # map's (phases 3 and 15)
+    k1r, k2r = p20["k1r"], p20["k2r"]
+    for tag, run, times in (
+            ("fused-cli-static", p20["a"], (k1r, k2r["pre"], k2r)),
+            ("fused-cli-resumed", p20["resumed"], (k1r, k2r["pre"], k2r)),
+            ("fused-cli-dynamic", p20["pre"], (k1v, opre, k2o)),
+            ("fused-cli-tracking", p20["tf"], (k1v, opre, k2o)),
+            ("staged-tracking", p20["st"], (k1, k2f["pre"], k2f))):
+        rl = run.launches
+        frames_run = {"fused-cli-static": N_FRAMES - 1,
+                      "fused-cli-resumed": N_FRAMES - FUSED_SPLIT,
+                      "staged-tracking": N_DYN}.get(tag, N_DYN - 1)
+        kernels += [
+            kernel_entry(f"integrate/{tag}", k1_src, rl["integrate"],
+                         rl["integrate"] / frames_run, times[0]),
+            kernel_entry(f"raycast/candidates-{tag}", k2_src,
+                         rl["candidates"], rl["candidates"] / frames_run,
+                         times[1]),
+            kernel_entry(f"raycast/{tag}", k2_src, rl["raycast"],
+                         rl["raycast"] / frames_run, times[2]),
+        ]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"paths whose kernel never launched: {idle}")
-    say("done", f"phases 1-19 in {time.perf_counter() - t_start:.1f} s")
+    say("done", f"phases 1-20 in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

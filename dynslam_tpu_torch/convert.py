@@ -98,7 +98,9 @@ def _sub(arrays, prefix):
 
 
 def _features(arrays, device) -> Features:
-    return Features(*(torch.tensor(np.asarray(arrays[k]), device=device)
+    # the JAX package keeps a feature's class as int32, the port as int64
+    return Features(*(torch.tensor(np.asarray(arrays[k]), device=device,
+                                   dtype=torch.int64 if k == "cls" else None)
                       for k in _FEATURE_KEYS))
 
 
@@ -125,7 +127,8 @@ def fused_carry_to_numpy(carry: FusedCarry) -> Dict[str, np.ndarray]:
            for k, v in tsdf_state_to_numpy(carry.state).items()}
     for name in ("prev_l", "prev_r"):
         for k, v in zip(_FEATURE_KEYS, getattr(carry, name)):
-            out[f"{name}.{k}"] = v.cpu().numpy()
+            a = v.cpu().numpy()
+            out[f"{name}.{k}"] = a.astype(np.int32) if k == "cls" else a
     for k in FUSED_CARRY_KEYS:
         if "." not in k:
             v = getattr(carry, k)

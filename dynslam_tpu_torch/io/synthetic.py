@@ -433,6 +433,28 @@ def write_kitti_frame(root: str, frame: int, left_rgb: np.ndarray,
         write_mnc_dump(os.path.join(root, "seg_image_2/mnc"), frame, dets)
 
 
+def tracklet_lines(scene: SyntheticScene, frame: int, c2w: np.ndarray,
+                   masks) -> List[str]:
+    """KITTI tracking-format labels (``io/tracklets.py``) of the dynamic
+    boxes in frame ``frame``, seen from camera pose ``c2w``: ``masks``
+    pairs a box's index in ``scene.boxes`` with its full-frame mask; boxes
+    of fewer than 16 pixels are left out."""
+    w2c = np.linalg.inv(c2w)
+    lines = []
+    for i, m in masks:
+        if m.sum() < 16:
+            continue
+        ys, xs = np.nonzero(m)
+        box = scene.boxes[i]
+        loc = w2c[:3, :3] @ box.pose_at(frame)[:3, 3] + w2c[:3, 3]
+        he = box.half_extents
+        lines.append(
+            f"{frame} {i} Car 0 0 0.0 {xs.min()} {ys.min()} {xs.max()} "
+            f"{ys.max()} {2 * he[1]:.3f} {2 * he[0]:.3f} "
+            f"{2 * he[2]:.3f} {loc[0]:.4f} {loc[1]:.4f} {loc[2]:.4f} 0.0")
+    return lines
+
+
 def write_kitti_sequence(
     root: str,
     num_frames: int = 10,
@@ -494,20 +516,7 @@ def write_kitti_sequence(
                 fr["depth_m"], intrinsics, kcal.velo_to_left_cam)
             if write_velodyne else None,
             write_elas_xml=write_elas_xml)
-        # KITTI tracking-format labels of the dynamic objects
-        w2c = np.linalg.inv(poses[f])
-        lines = []
-        for i, m in zip(dyn, masks):
-            if m.sum() < 16:
-                continue
-            ys, xs = np.nonzero(m)
-            box = scene.boxes[i]
-            loc = w2c[:3, :3] @ box.pose_at(f)[:3, 3] + w2c[:3, 3]
-            he = box.half_extents
-            lines.append(
-                f"{f} {i} Car 0 0 0.0 {xs.min()} {ys.min()} {xs.max()} "
-                f"{ys.max()} {2 * he[1]:.3f} {2 * he[0]:.3f} "
-                f"{2 * he[2]:.3f} {loc[0]:.4f} {loc[1]:.4f} {loc[2]:.4f} 0.0")
+        lines = tracklet_lines(scene, f, poses[f], zip(dyn, masks))
         if lines:
             with open(tracklet_path, "a") as tf:
                 tf.write("\n".join(lines) + "\n")

@@ -173,7 +173,12 @@ def _device_memory_line(device) -> str:
 
 
 def _check_pose(args, n: int, pose) -> None:
-    if args.debug_numerics and not np.isfinite(pose).all():
+    """With ``--debug_numerics``, stop at a non-finite pose; a device
+    tensor is fetched only then."""
+    if not args.debug_numerics:
+        return
+    pose = np.asarray(pose.cpu() if hasattr(pose, "cpu") else pose)
+    if not np.isfinite(pose).all():
         raise FloatingPointError(f"frame {n}: non-finite pose {pose}")
 
 
@@ -220,11 +225,17 @@ def _object_mesh_paths(out: str, tracks):
 
 
 def run_fused(args, cfg, device) -> int:
-    """--fused: the fused frame steps driven over the sequence."""
+    """--fused: the fused frame steps driven over the sequence. Each
+    frame's pose stays on the device until the loop ends, so that the host
+    stays a frame ahead of the device, as in the JAX CLI. A resumed run
+    goes on from the checkpoint's next frame and writes the checkpoint's
+    poses before its own; the JAX CLI reads a static checkpoint's sequence
+    again from frame 0 and writes the resumed frames alone."""
     import torch
 
     from dynslam_tpu_torch.io.calib import write_kitti_poses
     from dynslam_tpu_torch.ops import depth as depth_ops
+    from dynslam_tpu_torch.pipeline import checkpoint
     from dynslam_tpu_torch.pipeline.builder import build_fused
 
     pipe, input_, segp = build_fused(
@@ -235,18 +246,26 @@ def run_fused(args, cfg, device) -> int:
         with_evaluation=args.enable_evaluation,
         csv_out_dir=args.csv_out_dir or os.path.join(args.out, "csv"),
         use_prefetch=args.prefetch, device=device)
-    n = 0
+    eye = np.eye(4, dtype=np.float32)
+    # world-to-camera poses of the frames before this run (the bootstrap
+    # frame 0's is the identity) and, on the device, this run's
+    n, prior, poses = 0, [eye], []
     if args.resume_from:
-        from dynslam_tpu_torch.pipeline.checkpoint import load_fused_checkpoint
-
-        n = load_fused_checkpoint(args.resume_from, pipe)
+        n = checkpoint.load_fused_checkpoint(args.resume_from, pipe)
         input_.frame_idx = input_.frame_offset + n
         print(f"[resumed from {args.resume_from} at frame {n}]")
+        saved = checkpoint.fused_pose_history(args.resume_from)
+        if len(saved) == n + 1:
+            prior = list(saved[1:])
+        else:
+            prior = []
+            print(f"[{args.resume_from} holds no poses before frame {n}: "
+                  f"the trajectory starts at frame {n}]")
 
     def gray(rgb):
         return depth_ops.rgb_to_gray(torch.from_numpy(rgb)).numpy()
 
-    poses, t_steady, n_start = [], None, n
+    t_steady, n_start = None, n
     while input_.has_more_images():
         t0 = time.perf_counter()
         input_.read_next_frame()
@@ -262,7 +281,7 @@ def run_fused(args, cfg, device) -> int:
                 pipe.evaluation.submit(n, o.raycast.depth, o.depth_m, None,
                                        o.used_blocks, o.decayed_blocks)
         if pipe.last_outputs is not None:
-            poses.append(pipe.last_outputs.pose_w2c.cpu().numpy())
+            poses.append(pipe.last_outputs.pose_w2c)
             _check_pose(args, n, poses[-1])
             if args.dump_previews_every and n \
                     and n % args.dump_previews_every == 0:
@@ -285,21 +304,20 @@ def run_fused(args, cfg, device) -> int:
         pipe.evaluation.close()
     if args.prefetch:
         input_.close()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    # one fetch for the run's poses; it waits for the device to drain
+    w2c = prior + (list(torch.stack(poses).cpu().numpy()) if poses else [])
     if t_steady is not None and n - n_start > 3:
         fps = (n - n_start - 3) / (time.perf_counter() - t_steady)
         print(f"[steady-state: {fps:.2f} FPS over {n - n_start - 3} frames]")
     if args.checkpoint_out:
-        from dynslam_tpu_torch.pipeline.checkpoint import save_fused_checkpoint
-
-        save_fused_checkpoint(args.checkpoint_out, pipe)
+        checkpoint.save_fused_checkpoint(
+            args.checkpoint_out, pipe,
+            pose_history=[eye] + w2c if prior else None, frame=n)
         print(f"[checkpoint written to {args.checkpoint_out}]")
-    # frame 0 is the bootstrap (the identity pose), so trajectory rows ==
-    # frames processed
-    est = np.stack([np.eye(4)] + [np.linalg.inv(p) for p in poses]) \
-        if poses else np.eye(4)[None]
-    write_kitti_poses(os.path.join(args.out, "trajectory.txt"), est)
+    # trajectory rows == frames processed; frame 0 is the bootstrap
+    write_kitti_poses(os.path.join(args.out, "trajectory.txt"),
+                      np.stack([np.linalg.inv(p) for p in w2c])
+                      if w2c else np.zeros((0, 4, 4)))
     if args.save_mesh:
         from dynslam_tpu_torch.viz.meshing import extract_mesh, write_obj
 

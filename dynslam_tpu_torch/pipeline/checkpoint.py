@@ -10,10 +10,14 @@ loads in the JAX package.
   VO history.
 - Fused (``save_fused_checkpoint`` / ``load_fused_checkpoint``): the JAX
   carry's leaves as ``leaf_<i>`` in ``jax.tree_util`` flattening order,
-  which ``convert.FUSED_CARRY_KEYS`` / ``FUSED_DYN_CARRY_KEYS`` name.
+  which ``convert.FUSED_CARRY_KEYS`` / ``FUSED_DYN_CARRY_KEYS`` name, and
+  the port's RANSAC generator state (``rng_state``), so that a static run
+  resumed from its checkpoint draws what the continuous run draws.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -67,9 +71,15 @@ def _carry_keys(pipeline):
         else convert.FUSED_CARRY_KEYS
 
 
-def save_fused_checkpoint(path: str, pipeline) -> None:
+def save_fused_checkpoint(path: str, pipeline, pose_history=None,
+                          frame: Optional[int] = None) -> None:
     """Write a fused pipeline's carry and host counters (the dynamic
-    pipeline's tracker is not saved, as in the JAX package)."""
+    pipeline's tracker is not saved, as in the JAX package). The CLI
+    passes what the pipeline does not know: ``pose_history``
+    (world-to-camera poses, entry k + 1 frame k's, as the dynamic pipeline
+    keeps them; the static pipeline keeps none) and ``frame``, the next
+    frame of the sequence (the dynamic pipeline's ``current_frame_no``
+    also counts ``finalize``'s fusion-only replays)."""
     if pipeline.carry is None:
         raise ValueError("save_fused_checkpoint: nothing to save yet")
     keys = _carry_keys(pipeline)
@@ -81,16 +91,26 @@ def save_fused_checkpoint(path: str, pipeline) -> None:
     np.savez_compressed(
         path, version=FUSED_FORMAT_VERSION, n_leaves=len(keys),
         frames=int(getattr(pipeline, "_frames", 0)),
-        current_frame_no=int(getattr(pipeline, "current_frame_no", 0)),
-        pose_history=np.stack(getattr(
-            pipeline, "pose_history", [np.eye(4, dtype=np.float32)])),
+        current_frame_no=int(frame if frame is not None
+                             else getattr(pipeline, "current_frame_no", 0)),
+        pose_history=np.stack(
+            pose_history if pose_history is not None
+            else getattr(pipeline, "pose_history",
+                         [np.eye(4, dtype=np.float32)])),
+        # the RANSAC generator's state (the port's own key: the JAX
+        # package draws from the frame index and ignores it)
+        rng_state=pipeline.generator.get_state().numpy(),
         **leaves)
 
 
 def load_fused_checkpoint(path: str, pipeline) -> int:
     """Restore a carry saved by either package's ``save_fused_checkpoint``
     into a freshly built pipeline of the same configuration. Returns the
-    frame number to resume from."""
+    frame number to resume from: the dynamic pipeline's
+    ``current_frame_no`` or, for the static pipeline, which keeps no frame
+    number, the frames it processed. (The JAX package returns the saved
+    ``current_frame_no``, 0 for a static checkpoint, and its CLI then
+    reads the sequence again from frame 0 onto the restored map.)"""
     keys = _carry_keys(pipeline)
     with np.load(path) as data:
         if int(data["version"]) != FUSED_FORMAT_VERSION:
@@ -104,6 +124,7 @@ def load_fused_checkpoint(path: str, pipeline) -> int:
         frames = int(data["frames"])
         current = int(data["current_frame_no"])
         poses = [np.asarray(p) for p in data["pose_history"]]
+        rng = data["rng_state"] if "rng_state" in data else None
     dynamic = keys is convert.FUSED_DYN_CARRY_KEYS
     carry = (convert.fused_dyn_carry_from_numpy if dynamic
              else convert.fused_carry_from_numpy)(arrays, pipeline.device)
@@ -115,11 +136,24 @@ def load_fused_checkpoint(path: str, pipeline) -> int:
             raise ValueError(f"{path}: a pool of {tuple(words.shape)} words, "
                              f"the pipeline's {(cfg.pool_capacity, 512)}")
     pipeline.carry = carry
+    if rng is not None:
+        import torch
+
+        pipeline.generator.set_state(torch.from_numpy(rng))
     if hasattr(pipeline, "_frames"):
         pipeline._frames = frames
     if hasattr(pipeline, "pose_history"):
         pipeline.pose_history = poses
     if hasattr(pipeline, "current_frame_no"):
         pipeline.current_frame_no = current
-    return current
+        return current
+    return frames
+
+
+def fused_pose_history(path: str) -> np.ndarray:
+    """The world-to-camera poses a fused checkpoint holds (entry k + 1
+    frame k's); a static checkpoint the JAX package saved holds the
+    identity alone."""
+    with np.load(path) as data:
+        return data["pose_history"]
 

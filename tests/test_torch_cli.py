@@ -260,7 +260,8 @@ def _record_build(monkeypatch, module) -> list:
 #: (tests/test_torch_staged_options.py runs each in both packages);
 #: ICP as the primary odometry has no flag in either CLI
 #: (``external_odometry`` is a config field), so its case checks that both
-#: CLIs keep the default
+#: CLIs keep the default; and the KITTI tracking layout
+#: (tests/test_torch_tracking_layout.py runs it)
 OPTION_SETS = {
     "depth-weighting": ["--use_depth_weighting", "--fusion_every", "2"],
     "live-stereo": ["--use_live_stereo", "--fill_disparity_gaps", "8",
@@ -268,6 +269,8 @@ OPTION_SETS = {
     "dispnet": ["--use_dispnet"],
     "half-scale": ["--scale", "2"],
     "icp-primary": [],
+    "kitti-tracking": ["--dataset_type", "kitti-tracking",
+                       "--kitti_tracking_sequence_id", "0"],
 }
 
 
@@ -304,6 +307,8 @@ def test_option_set_config_equals_jax(seq, tmp_path, monkeypatch, case):
         (True, 8, True) if case == "live-stereo" else (False, 0, False))
     assert cfg.use_dispnet == (case == "dispnet")
     assert cfg.scale == (2.0 if case == "half-scale" else 1.0)
+    assert tkw["kitti_tracking_sequence"] == (
+        0 if case == "kitti-tracking" else None)
     assert cfg.external_odometry
     for parser in (jmain.build_arg_parser(), main.build_arg_parser()):
         assert not any("odometry" in a for action in parser._actions

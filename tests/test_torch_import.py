@@ -4,7 +4,9 @@ of the CLI, of the learned models, of the parallel paths, of the native
 readers and of the scripts leave no
 ``jax*``, ``flax``, ``optax``, ``msgpack`` or ``cv2`` module and nothing
 of the JAX package ``dynslam_tpu`` loaded. Checked in a fresh interpreter,
-because this test process imports jax (``tests/conftest.py``)."""
+because this test process imports jax (``tests/conftest.py``). No source
+of the port, nor ``chip_smoke.py`` and the test helper it imports, has
+such an import statement."""
 
 import pathlib
 import re
@@ -113,8 +115,11 @@ def test_slice_modules_import_without_jax():
 
 @pytest.mark.parametrize(
     "path",
-    # _build/ holds what the package builds at run time, not its sources
-    sorted(p for p in PKG.rglob("*.py") if "_build" not in p.parts),
+    # _build/ holds what the package builds at run time, not its sources;
+    # chip_smoke.py and the tracking-layout helper it imports run on the
+    # card's machine, which has no JAX
+    sorted(p for p in PKG.rglob("*.py") if "_build" not in p.parts)
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tracking_layout.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     text = path.read_text()
