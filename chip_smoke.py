@@ -214,6 +214,24 @@ and never prints its last line):
     the dynamic fused CLI over it: (c)'s checks, and its outputs equal
     (c)'s byte for byte.
 
+21. the port's bench (``dynslam_tpu_torch/bench.py``): the first 20
+    frames of the bench's two sequences (rendered in the script's one
+    pool at the start, phases 5 and 8 taking their first frames) written
+    as KITTI folders; one frame of the bench's dynamic loop in this
+    process under a sync census (the frame thread's sites at most phase
+    8's, none on the segmentation worker that uploads the mask planes);
+    then ``python -m dynslam_tpu_torch.bench --frames 20`` itself:
+    static, dynamic, dynamic eval-on and static eval-on at bench.py's
+    definition cut to 20 frames (3 warm-up, decay age 200), each in its
+    subprocess with its time limit. Checks five lines under bench.py's
+    metric names (the static one first and last), each with a value > 0,
+    the card's name and power limit; a reconstructed object; the eval-on
+    modes' CSV rows at the counts the CPU test pins; each eval-on mode at
+    >= 0.5x its eval-off mode; every kernel launched in every mode; the
+    artifacts under the port's names in ``_build/bench/``. Prints each
+    mode's frame rate beside phases 5's and 8's, its launches and peak
+    memory.
+
 Phases 3, 4, 7, 9, 12, 14, 15 and 17-20 also print each kernel's times:
 the bare kernel (its prepared C call alone, no Python conversion between
 launches), warm (50 back-to-back launches between two CUDA events) and
@@ -232,9 +250,9 @@ line with an entry per kernel and path (launches on the main path and a
 frame, error, bare/cold/wrapper/parent times, bound and share), and last
 ``{"ok": true, "device": {...}}``.
 
-The frames (both bench scenes, the soaks' laps and vo_drift's sequence)
-are rendered with the port's numpy renderer in one pool of worker
-processes and cached under ``dynslam_tpu_torch/_build/``.
+The frames (the bench's two sequences, the soaks' laps and vo_drift's
+sequence) are rendered with the port's numpy renderer in one pool of
+worker processes and cached under ``dynslam_tpu_torch/_build/``.
 """
 
 from __future__ import annotations
@@ -259,8 +277,8 @@ PACKAGE = ROOT / "dynslam_tpu_torch"
 sys.path.insert(0, str(ROOT))
 
 from dynslam_tpu_torch.scripts.bench_setup import (  # noqa: E402
-    BUILD_DIR, H, SEED, SPEED, W, bench_config, bench_sets, profile_frames,
-    render_sets,
+    BUILD_DIR, H, SEED, SPEED, W, bench_config, ensure_seq, profile_frames,
+    render_sets, seq_set,
 )
 
 N_FRAMES = 8
@@ -271,7 +289,8 @@ MIN_DECAY_AGE = 4
 #: lies before the frames the frame rate is taken over
 CENSUS_FRAME = 2
 #: the dynamic slice: frames, the ones its frame rate is taken over, the
-#: ones profiled, the bench scene's cars (bench.py ensure_seq)
+#: ones profiled, the frame whose syncs are counted (on the bench's
+#: dynamic scene, ``dynslam_tpu_torch/bench.py``'s sequence)
 N_DYN = 12
 DYN_FPS_FRAMES = range(5, 10)
 DYN_PROFILE_FRAMES = range(10, 12)
@@ -4028,6 +4047,158 @@ def run_phase20(base, sdir: Path, config, dconfig, frames, dyn_frames, device,
 
 
 # ---------------------------------------------------------------------------
+# phase 21: the port's bench
+# ---------------------------------------------------------------------------
+
+#: phase 21: the frames of each bench mode (bench.py's 40 cut to a prefix
+#: of its sequences, to keep the whole script near 15 minutes cold: the
+#: 40 frames' renders alone would add ~4 minutes), a mode's time limit (s)
+#: and the frames of the in-process census run
+BENCH_FRAMES = 20
+BENCH_MODE_TIMEOUT = 240
+BENCH_CENSUS_FRAMES = 6
+#: an eval-on mode's frame rate against its eval-off mode's, at least: a
+#: sanity floor (evaluation adds device work but never halves the rate),
+#: not a retry
+BENCH_EVAL_FLOOR = 0.5
+#: the orchestrator's modes, in its order: (mode, evaluation on)
+BENCH_MODES = (("static", False), ("dynamic", False), ("dynamic", True),
+               ("static", True))
+
+
+def prefix(frames: dict, n: int) -> dict:
+    """The first ``n`` frames of a rendered set."""
+    return {k: frames[k][:n] for k in ("left", "right", "depth", "objid",
+                                       "poses")}
+
+
+def bench_census(root: str, device, reference: Counter) -> dict:
+    """Frame ``DYN_CENSUS_FRAME`` of the bench's own dynamic loop
+    (``bench.main_dynamic`` in this process over the first frames of
+    ``root``, evaluation off, the segmentation worker uploading the mask
+    planes) under a sync census: the frame thread's sites at most phase
+    8's (``reference``), a constant's first use left out of both, and no
+    site on the worker (its upload goes through pinned memory)."""
+    from dynslam_tpu_torch import bench
+    from dynslam_tpu_torch import device as device_mod
+    from dynslam_tpu_torch.pipeline import builder
+
+    build, got = builder.build_fused, {}
+
+    def build_fused(*args, **kw):
+        pipe, inp, segp = build(*args, **kw)
+        process, frame = pipe.process_frame, iter(range(BENCH_CENSUS_FRAMES))
+
+        def process_frame(*a, **k):
+            if next(frame) == DYN_CENSUS_FRAME:
+                got["own"], got["other"] = count_syncs(
+                    lambda: process(*a, **k))
+            else:
+                process(*a, **k)
+        pipe.process_frame = process_frame
+        return pipe, inp, segp
+
+    builder.build_fused = build_fused
+    try:
+        bench.main_dynamic(device=device, root=root,
+                           n_frames=BENCH_CENSUS_FRAMES)
+    finally:
+        builder.build_fused = build
+    first_use = source_site(device_mod._constant, "torch.tensor(")
+    own = got["own"] - Counter({first_use: got["own"][first_use]})
+    ref = reference - Counter({first_use: reference[first_use]})
+    if own - ref or got["other"]:
+        raise AssertionError(
+            f"the bench's dynamic frame {DYN_CENSUS_FRAME}: frame-thread "
+            f"syncs {dict(own)} (phase 8: {dict(ref)}), the worker's "
+            f"{dict(got['other'])}")
+    return dict(own=own, ref=ref)
+
+
+def run_bench(out: Path) -> dict:
+    """``python -m dynslam_tpu_torch.bench --out out`` in a subprocess (it
+    runs each mode in its own, with its time limit): its JSON lines, and
+    from its stderr (``out/bench_stderr.log``) each mode's kernel launches
+    (counted from 0 in each mode's process), peak memory and the static
+    voxel-ops. Raises if it exits non-zero."""
+    import re
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    log = out / "bench_stderr.log"
+    cmd = [sys.executable, "-m", "dynslam_tpu_torch.bench", "--out",
+           str(out), "--timeout", str(BENCH_MODE_TIMEOUT), "--frames",
+           str(BENCH_FRAMES)]
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.run(cmd, cwd=str(ROOT), stdout=subprocess.PIPE,
+                              stderr=err, text=True,
+                              timeout=5 * BENCH_MODE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    text = log.read_text()
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"the bench exited {proc.returncode}: {proc.stdout}\n"
+            + "\n".join(text.splitlines()[-20:]))
+    return dict(
+        lines=[json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.startswith("{")],
+        launches=[json.loads(m) for m in
+                  re.findall(r"\[bench\] kernel launches: (\{.*\})", text)],
+        peak_gb=[float(x) for x in
+                 re.findall(r"peak device memory ([0-9.]+) GB", text)],
+        vox=re.findall(r"\[bench\] ([0-9]+) M voxel-ops/s \(measured "
+                       r"fusion\+raycast, ([0-9.]+) M/frame", text),
+        wall=wall, log=log)
+
+
+def check_bench(b: dict, out: Path, kind: str, smi: str) -> dict:
+    """The bench's five lines (its four modes, then the static one again)
+    under bench.py's metric names, each with a value > 0, no error, the
+    card's name and power limit; the dynamic mode's reconstructed objects;
+    the eval-on modes' CSV rows at the counts the CPU test pins
+    (``tests/test_torch_bench.py``: static N - 1, dynamic at lag 2 N -
+    3); each eval-on mode at >= ``BENCH_EVAL_FLOOR`` of its eval-off
+    mode; the artifacts under the port's names in ``out``; every kernel
+    launched in every mode."""
+    from dynslam_tpu_torch import bench
+
+    lines, power = b["lines"], float(smi.split(",")[-1].split()[0])
+    if len(lines) != 5 or lines[0] != lines[4]:
+        raise AssertionError(f"the bench printed {lines}")
+    fps = {}
+    for (mode, ev), res, launches in zip(BENCH_MODES, lines, b["launches"]):
+        want = bench.METRICS[mode, ev]
+        if res.get("error") or not (res.get("value") or 0) > 0 \
+                or res.get("metric") != want:
+            raise AssertionError(f"{want}: {res}")
+        if res.get("device") != kind or res.get("power_limit_w") != power:
+            raise AssertionError(f"{want}: device {res.get('device')}, "
+                                 f"{res.get('power_limit_w')} W ({smi})")
+        rows = BENCH_FRAMES - (1 if mode == "static" else 3)
+        if ev and res.get("eval_csv_rows") != rows:
+            raise AssertionError(f"{want}: {res.get('eval_csv_rows')} CSV "
+                                 f"rows, {rows} expected")
+        if min(launches.values()) < 1:
+            raise AssertionError(f"{want}: kernel launches {launches}")
+        fps[mode, ev] = res["value"]
+    if len(b["launches"]) != 4:
+        raise AssertionError(f"launch lines {b['launches']}")
+    if lines[1]["reconstructed_objects"] < 1:
+        raise AssertionError(f"dynamic: {lines[1]}")
+    for mode in ("static", "dynamic"):
+        if fps[mode, True] < BENCH_EVAL_FLOOR * fps[mode, False]:
+            raise AssertionError(
+                f"{mode} eval-on {fps[mode, True]} FPS under "
+                f"{BENCH_EVAL_FLOOR} x eval-off {fps[mode, False]}")
+    names = sorted(p.name for p in out.glob("BENCH_*.json"))
+    if names != ["BENCH_TORCH_DYNAMIC.json", "BENCH_TORCH_EVAL.json"]:
+        raise AssertionError(f"artifacts in {out}: {names}")
+    return fps
+
+
+# ---------------------------------------------------------------------------
 
 
 def build_kernels(parent: Optional[Path]) -> dict:
@@ -4127,18 +4298,23 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     s_set, s_idx = soak.loop_set(SOAK_LAP, W, H, False, "shuttle")
     d_set, d_idx = soak.loop_set(SOAK_LAP, W, H, True, "shuttle")
-    frames, dyn_frames, s_loop, d_loop, vo_seq = render_sets(
-        bench_sets(config, [(N_FRAMES, False), (N_DYN, True)])
-        + [s_set, d_set, vo_drift.sequence_set(VO_FRAMES, VO_W, VO_H, VO_F,
-                                               VO_SPEED, VO_YAW)],
+    bench_seqs = render_sets(
+        [seq_set(False, BENCH_FRAMES), seq_set(True, BENCH_FRAMES),
+         s_set, d_set, vo_drift.sequence_set(VO_FRAMES, VO_W, VO_H, VO_F,
+                                             VO_SPEED, VO_YAW)],
         BUILD_DIR)
+    bench_seqs, (s_loop, d_loop, vo_seq) = bench_seqs[:2], bench_seqs[2:]
+    # phases 5 and 8 drive the first frames of the bench sequences
+    frames, dyn_frames = (prefix(f, n) for f, n in zip(
+        bench_seqs, (N_FRAMES, N_DYN)))
     s_loop, d_loop = soak.lap_frames(s_loop, s_idx), \
         soak.lap_frames(d_loop, d_idx)
-    say("frames", f"{N_FRAMES} static and {N_DYN} dynamic frames {W}x{H} "
-                  f"(bench scenes, seed {SEED}), the soaks' {SOAK_LAP}-frame"
-                  f" laps ({len(s_set.poses)} and {len(d_set.poses)} "
-                  f"renders) and {VO_FRAMES} vo_drift frames {VO_W}x{VO_H} "
-                  f"in {time.perf_counter() - t0:.1f} s")
+    say("frames", f"the bench's {BENCH_FRAMES}-frame static and dynamic "
+                  f"sequences {W}x{H} (seed {SEED}; phases 5 and 8 take "
+                  f"their first {N_FRAMES} and {N_DYN}), the soaks' "
+                  f"{SOAK_LAP}-frame laps ({len(s_set.poses)} and "
+                  f"{len(d_set.poses)} renders) and {VO_FRAMES} vo_drift "
+                  f"frames {VO_W}x{VO_H} in {time.perf_counter() - t0:.1f} s")
 
     # 3. K1 vs plain
     scene = map_scene(cfg, frames, device)
@@ -4524,6 +4700,39 @@ def main(argv=None) -> int:
         census=census, fps=sl["fps"], dcensus=dcensus, dfps=dyn["fps"],
         staged_out=out))
 
+    # 21. the port's bench
+    t21 = time.perf_counter()
+    roots = [ensure_seq(d, n_frames=BENCH_FRAMES, frames=f)
+             for d, f in zip((False, True), bench_seqs)]
+    del bench_seqs
+    say("bench", f"the bench sequences written as KITTI folders {roots} in "
+                 f"{time.perf_counter() - t21:.1f} s")
+    bc = bench_census(roots[1], device, dcensus)
+    say("bench", f"the bench's dynamic loop in this process "
+                 f"({BENCH_CENSUS_FRAMES} frames, evaluation off, the mask "
+                 f"planes from the segmentation worker): host syncs on the "
+                 f"frame thread in frame {DYN_CENSUS_FRAME}: "
+                 f"{sum(bc['own'].values())} {dict(bc['own'])} (phase 8: "
+                 f"{sum(bc['ref'].values())}; a constant's first use left "
+                 f"out of both), none on the worker")
+    bout = BUILD_DIR / "bench"
+    bres = run_bench(bout)
+    bfps = check_bench(bres, bout, kind, smi)
+    for res, launches, peak in zip(bres["lines"], bres["launches"],
+                                   bres["peak_gb"]):
+        say("bench", f"{res['metric']}: {res['value']} FPS over frames "
+                     f"4-{BENCH_FRAMES - 1}; {json.dumps(res)}; kernel "
+                     f"launches {launches}; peak memory {peak:.2f} GB")
+    say("bench", f"python -m dynslam_tpu_torch.bench --frames "
+                 f"{BENCH_FRAMES} (all four modes) in {bres['wall']:.1f} s; "
+                 f"static "
+                 f"voxel-ops {bres['vox']} (M/s, M a frame; eval off, on); "
+                 f"static {bfps['static', False]} FPS beside phase 5's "
+                 f"{sl['fps']:.2f}, dynamic {bfps['dynamic', False]} beside "
+                 f"phase 8's {dyn['fps']:.2f} (same call); artifacts and "
+                 f"the modes' stderr in {bout}; phase 21 in "
+                 f"{time.perf_counter() - t21:.1f} s")
+
     k1_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/integrate.cu",
                   replaces="dynslam_tpu/ops/pallas_integrate.py:536")
     k2_src = dict(route="cuda", source="dynslam_tpu_torch/csrc/raycast.cu",
@@ -4682,10 +4891,28 @@ def main(argv=None) -> int:
             kernel_entry(f"raycast/{tag}", k2_src, rl["raycast"],
                          rl["raycast"] / frames_run, times[2]),
         ]
+    # phase 21's modes (each mode's process counts its own launches): K1
+    # with phase 3's times (static) or phase 7's (dynamic: the volume axis
+    # too); K2 with phase 4's (the static map's renders) or, dynamic with
+    # evaluation on, which adds the object renders, phase 9's
+    for (mode, ev), launches in zip(BENCH_MODES, bres["launches"]):
+        tag = f"bench-{mode}" + ("-eval" if ev else "")
+        times = ((k1 if mode == "static" else k1v),) + (
+            (opre, k2o) if mode == "dynamic" and ev else (pre, k2))
+        per = BENCH_FRAMES - 1
+        kernels += [
+            kernel_entry(f"integrate/{tag}", k1_src, launches["integrate"],
+                         launches["integrate"] / per, times[0]),
+            kernel_entry(f"raycast/candidates-{tag}", k2_src,
+                         launches["candidates"],
+                         launches["candidates"] / per, times[1]),
+            kernel_entry(f"raycast/{tag}", k2_src, launches["raycast"],
+                         launches["raycast"] / per, times[2]),
+        ]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"paths whose kernel never launched: {idle}")
-    say("done", f"phases 1-20 in {time.perf_counter() - t_start:.1f} s")
+    say("done", f"phases 1-21 in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -502,10 +502,16 @@ class _SlotHandle:
         return self.pipeline.raycast_instance(self.slot, cam_to_world)
 
     def reset(self) -> None:
+        if self.pipeline.verbose_tracker:
+            print(f"[tracker] slot {self.slot}: RESET routed",
+                  file=sys.stderr)
         self.pipeline._route_reset[self.slot] = True
         self.fused_frames = 0
 
     def reap(self, max_weight: float) -> None:
+        if self.pipeline.verbose_tracker:
+            print(f"[tracker] slot {self.slot}: REAP w<={max_weight}",
+                  file=sys.stderr)
         self.pipeline._route_reap[self.slot] = float(max_weight)
 
     def release(self) -> None:
@@ -567,6 +573,8 @@ class FusedDynamicPipeline:
         self.sampler = sampler
 
         self.tracker = InstanceTracker(config.tracker)
+        #: log slot resets, reaps and track state transitions to stderr
+        self.verbose_tracker = False
         self._free_slots: List[int] = list(range(S))
         self.carry: Optional[FusedDynCarry] = None
         self.last_outputs: Optional[FusedDynOutputs] = None
@@ -692,11 +700,15 @@ class FusedDynamicPipeline:
         raise AssertionError("frame not associated")
 
     def process_frame(self, left_gray, right_gray, rgb=None,
-                      detections: Optional[List[InstanceDetection]] = None
-                      ) -> None:
+                      detections: Optional[List[InstanceDetection]] = None,
+                      masks_dev=None) -> None:
         """One frame: gray images (H, W) and optional RGB (H, W, 3) uint8,
         numpy or tensors, and the frame's instance detections (host
-        data)."""
+        data). ``masks_dev``, when given, is the (delete_bits, copy_bits)
+        pair of ``pack_mask_bits`` planes of the same ``select_detections``
+        subset, already on the device (the bench's segmentation worker
+        packs and uploads them a frame ahead); the step then skips its own
+        packing and upload."""
         detections = detections or []
         dev = self.device
         lg = _to_device(left_gray, torch.float32, dev, copy=True)
@@ -785,9 +797,12 @@ class FusedDynamicPipeline:
                                   u0: u0 + self.crop_w].sum()
                     trunc_px[j] = int(full.sum()) - int(inside)
 
-        db, cb = self.pack_mask_bits(cands, h, w, self.K)
-        both = _bits_i32(upload(np.stack([db, cb]), dev))
-        delete_bits, copy_bits = both[0], both[1]
+        if masks_dev is not None:
+            delete_bits, copy_bits = (_bits_i32(x) for x in masks_dev)
+        else:
+            db, cb = self.pack_mask_bits(cands, h, w, self.K)
+            both = _bits_i32(upload(np.stack([db, cb]), dev))
+            delete_bits, copy_bits = both[0], both[1]
 
         routing = Routing(
             copy_bbox=copy_bbox, mask_gate=mask_gate, warm_tr=warm_tr,
@@ -904,7 +919,13 @@ class FusedDynamicPipeline:
                 tf.precomputed_motion = (T, obj_tr[j].copy())
             else:
                 tf.precomputed_motion = (None, None)
+            old_state = track.state
             track.update(egomotion, None, frame=tf)
+            if self.verbose_tracker and track.state != old_state:
+                print(f"[tracker] frame {frame_no} track {track.id}: "
+                      f"{old_state.value} -> {track.state.value} "
+                      f"(flow {int(obj_count[j])}, "
+                      f"ok {bool(obj_success[j])})", file=sys.stderr)
 
         # ProcessReconstructions, with fusion routed into a later dispatch
         fmap = {track.id: (j, tf, idx) for j, track, tf, idx in assoc}

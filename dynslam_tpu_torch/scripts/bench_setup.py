@@ -1,9 +1,9 @@
-"""Set-up shared by the port's scripts and ``chip_smoke.py``: the part of
-``bench.py`` the scripts import (``ensure_seq``, ``load_frames``,
-``bench_config``, ``bench.py:69-146``), the bench scenes rendered in one
-pool of worker processes and cached under ``dynslam_tpu_torch/_build/``,
-and the profiler's summary by stage. It is not a bench: it has no timing
-modes and prints no JSON.
+"""Set-up shared by the port's bench (``dynslam_tpu_torch/bench.py``), its
+scripts and ``chip_smoke.py``: the bench's sequences and configuration
+(``ensure_seq``, ``load_frames``, ``bench_config``; ``bench.py:69-146``),
+frames of synthetic scenes rendered in one pool of worker processes and
+cached under ``dynslam_tpu_torch/_build/`` (``render_sets``), and the
+profiler's summary by stage. The timing modes are the bench's.
 """
 
 from __future__ import annotations
@@ -31,7 +31,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 
 def bench_scene(dynamic: bool) -> dict:
-    """``SyntheticScene.default_scene`` arguments of a bench scene."""
+    """``SyntheticScene.default_scene`` arguments of a bench scene (those
+    ``write_kitti_sequence`` passes for bench.py's sequences: the static
+    scene ignores ``n_dynamic``)."""
     if dynamic:
         return dict(with_dynamic=True, seed=SEED, n_dynamic=N_DYNAMIC,
                     n_rows=SCENE_ROWS, recurring_oncoming=RECURRING)
@@ -46,18 +48,16 @@ def bench_config(dynamic: bool, k4: bool = False,
     with the shipped ``InstanceMapParams`` (8 volumes, 16 mask slots), or
     a quarter of it with ``k4``."""
     from dynslam_tpu_torch.config import (
-        DynSlamConfig, InstanceMapParams, Intrinsics, MapParams,
-        SceneParams, StereoCalibration, StereoMatcherParams,
-        VisualOdometryParams, VoxelDecayParams,
+        DynSlamConfig, InstanceMapParams, MapParams, SceneParams,
+        StereoMatcherParams, VisualOdometryParams, VoxelDecayParams,
     )
 
     imp = InstanceMapParams()
     if k4:
         imp = InstanceMapParams(max_objects=4, max_detections=4)
+    intr, calib = bench_intrinsics()
     return DynSlamConfig(
-        frame_width=W, frame_height=H,
-        intrinsics=Intrinsics(707.0912, 707.0912, W / 2.0, 183.1104),
-        calibration=StereoCalibration(0.537150654273, 707.0912),
+        frame_width=W, frame_height=H, intrinsics=intr, calibration=calib,
         dynamic_mode=dynamic,
         scene=SceneParams(voxel_size_m=0.05, mu_m=0.30),
         map=MapParams(pool_capacity=2 ** 17, local_dims=(160, 48, 160),
@@ -70,32 +70,92 @@ def bench_config(dynamic: bool, k4: bool = False,
     )
 
 
+def bench_intrinsics(width: int = W, height: int = H):
+    """(intrinsics, stereo calibration) of the bench rig (bench.py:80-81):
+    KITTI's 1242x375 camera, scaled with the frame for a smaller one."""
+    from dynslam_tpu_torch.config import Intrinsics, StereoCalibration
+
+    s = width / W
+    return (Intrinsics(707.0912 * s, 707.0912 * s, width / 2.0,
+                       183.1104 * (height / H)),
+            StereoCalibration(0.537150654273, 707.0912 * s))
+
+
+def seq_set(dynamic: bool, n_frames: int = N_FRAMES, width: int = W,
+            height: int = H) -> "RenderSet":
+    """The ``RenderSet`` of a bench sequence: the frames ``ensure_seq``
+    writes, with each frame's LIDAR scan."""
+    from dynslam_tpu_torch.io import synthetic as syn
+
+    intr, calib = bench_intrinsics(width, height)
+    return RenderSet(
+        f"bench_seq-{'dyn' if dynamic else 'static'}-{width}x{height}-n"
+        f"{n_frames}-s{SEED}-r{SCENE_ROWS}-v{SPEED}-y{YAW_RATE}"
+        + (f"-dyn{N_DYNAMIC}-rec{RECURRING}" if dynamic else ""),
+        syn.straight_trajectory(n_frames, speed=SPEED, yaw_rate=YAW_RATE),
+        bench_scene(dynamic), intr, calib, width, height,
+        keep=("left", "right", "depth", "objid", "velodyne"))
+
+
+def seq_root(dynamic: bool, n_frames: int = N_FRAMES, width: int = W,
+             height: int = H) -> str:
+    return str(BUILD_DIR / (f"bench_seq_{'dyn' if dynamic else 'static'}_"
+                            f"{width}x{height}x{n_frames}"))
+
+
 def ensure_seq(dynamic: bool, root: Optional[str] = None,
-               n_frames: int = N_FRAMES) -> str:
+               n_frames: int = N_FRAMES, width: int = W, height: int = H,
+               frames: Optional[dict] = None) -> str:
     """The bench scene as a KITTI-layout sequence with LIDAR scans and
     MNC dumps (the inputs the reference's own loop reads), written once
-    under ``_build/`` (or ``root``) and kept."""
-    from dynslam_tpu_torch.config import Intrinsics, StereoCalibration
-    from dynslam_tpu_torch.io.synthetic import write_kitti_sequence
+    under ``_build/`` (or ``root``) and kept: byte for byte what
+    ``write_kitti_sequence`` writes for bench.py's arguments
+    (``bench.py:69-96``), its frames rendered in ``render_sets``' process
+    pool (or taken from ``frames``, that pool's output for ``seq_set``)."""
+    from dynslam_tpu_torch.io import synthetic as syn
+    from dynslam_tpu_torch.io.calib import (
+        write_kitti_calibration, write_kitti_poses,
+    )
 
-    root = root or str(BUILD_DIR / (
-        f"bench_seq_{'dyn' if dynamic else 'static'}_{W}x{H}x{n_frames}"))
+    root = root or seq_root(dynamic, n_frames, width, height)
     marker = os.path.join(root, ".bench_complete")
     if os.path.exists(marker):
         return root
+    rset = seq_set(dynamic, n_frames, width, height)
+    if frames is None:
+        print(f"[bench_setup] rendering the "
+              f"{'dynamic' if dynamic else 'static'} bench sequence into "
+              f"{root} (once, ~20 s a frame on each core)", file=sys.stderr)
+        frames = render_sets([rset])[0]
     shutil.rmtree(root, ignore_errors=True)
-    print(f"[bench_setup] rendering the {'dynamic' if dynamic else 'static'}"
-          f" bench sequence into {root} (once, ~20 s a frame)",
-          file=sys.stderr)
-    write_kitti_sequence(
-        root, num_frames=n_frames, width=W, height=H,
-        intrinsics=Intrinsics(707.0912, 707.0912, W / 2.0, 183.1104),
-        calib=StereoCalibration(0.537150654273, 707.0912),
-        with_dynamic=dynamic, n_dynamic=N_DYNAMIC, write_velodyne=True,
-        write_elas_xml=False, write_dispnet=False, seed=SEED,
-        scene_kwargs=dict(n_rows=SCENE_ROWS, recurring_oncoming=RECURRING)
-        if dynamic else dict(n_rows=SCENE_ROWS),
-        trajectory_kwargs=dict(speed=SPEED, yaw_rate=YAW_RATE))
+    for sub in ("image_2", "image_3", "velodyne", "precomputed-depth/Frames",
+                "precomputed-depth-dispnet", "seg_image_2/mnc"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    # the poses in float64, as the renderer took them (the cache holds
+    # float32 copies)
+    poses = np.asarray(rset.poses)
+    write_kitti_calibration(os.path.join(root, "calib.txt"),
+                            syn.make_calibration(rset.intrinsics, rset.calib))
+    write_kitti_poses(os.path.join(root, "ground-truth-poses.txt"), poses)
+    scene = syn.SyntheticScene.default_scene(**rset.scene)
+    dyn = [i for i, box in enumerate(scene.boxes) if box.is_dynamic]
+    tracklets = []
+    for f in range(n_frames):
+        objid = frames["objid"][f]
+        masks = [objid == i + 1 for i in dyn]
+        gray = [np.repeat(frames[k][f][..., None], 3, axis=-1)
+                for k in ("left", "right")]
+        syn.write_kitti_frame(
+            root, f, gray[0], gray[1], frames["depth"][f],
+            object_masks=masks if (dynamic or any(
+                m.sum() >= 16 for m in masks)) else None,
+            velodyne_points=frames["velodyne"][f][
+                :frames["velodyne_n"][f]],
+            write_elas_xml=False)
+        tracklets += syn.tracklet_lines(scene, f, poses[f], zip(dyn, masks))
+    if tracklets:
+        with open(os.path.join(root, "tracklets.txt"), "w") as tf:
+            tf.write("\n".join(tracklets) + "\n")
     open(marker, "w").close()
     return root
 
@@ -125,8 +185,8 @@ class RenderSet(NamedTuple):
     poses (n, 4, 4; pose i renders at frame index i), ``default_scene``
     arguments, intrinsics, stereo calibration, size, the gray rule
     (``round``: ``to_uint8_rgb``, ``trunc``: ``clip(g * 255).astype(
-    uint8)``, ``float``: ``clip(g * 255)`` as float32) and the renderer's
-    outputs kept."""
+    uint8)``, ``float``: ``clip(g * 255)`` as float32) and the outputs
+    kept (``_render_one``)."""
 
     key: str
     poses: np.ndarray
@@ -147,10 +207,16 @@ def _gray(gray: np.ndarray, rule: str) -> np.ndarray:
     return np.clip(gray * 255, 0, 255).astype(np.uint8)
 
 
+#: points of a LIDAR scan ``make_velodyne_points`` keeps at most
+VELODYNE_POINTS = 20000
+
+
 def _render_one(args):
     """One stereo frame: the ``keep`` entries of (left, right) gray by
-    ``rule``, depth, the ids of the scene's dynamic boxes (0 elsewhere)
-    and the true disparity."""
+    ``rule``, depth, the ids of the scene's dynamic boxes (0 elsewhere),
+    the true disparity and the LIDAR scan ``write_kitti_sequence`` writes
+    (``velodyne``: padded to ``VELODYNE_POINTS`` rows, with its length
+    as ``velodyne_n``)."""
     from dynslam_tpu_torch.io import synthetic as syn
 
     frame, pose, intr, calib, width, height, scene_kw, rule, keep = args
@@ -163,7 +229,16 @@ def _render_one(args):
                right=_gray(fr["right_gray"], rule),
                depth=fr["depth_m"].astype(np.float32),
                objid=objid.astype(np.int16), disparity=fr["disparity"])
-    return {k: out[k] for k in keep}
+    out = {k: out[k] for k in keep if k != "velodyne"}
+    if "velodyne" in keep:
+        pts = syn.make_velodyne_points(
+            fr["depth_m"], intr,
+            syn.make_calibration(intr, calib).velo_to_left_cam,
+            max_points=VELODYNE_POINTS)
+        out["velodyne"] = np.zeros((VELODYNE_POINTS, 4), np.float32)
+        out["velodyne"][:len(pts)] = pts
+        out["velodyne_n"] = np.int64(len(pts))
+    return out
 
 
 def render_sets(sets, cache_dir: Path = BUILD_DIR):
@@ -194,7 +269,7 @@ def render_sets(sets, cache_dir: Path = BUILD_DIR):
         for i in todo:
             s = sets[i]
             part, out = out[:len(s.poses)], out[len(s.poses):]
-            frames = {k: np.stack([o[k] for o in part]) for k in s.keep}
+            frames = {k: np.stack([o[k] for o in part]) for k in part[0]}
             frames["poses"] = np.asarray(s.poses, np.float32)
             tmp = paths[i].with_name(f"{paths[i].stem}.{os.getpid()}.tmp.npz")
             np.savez(tmp, **frames)
@@ -204,22 +279,6 @@ def render_sets(sets, cache_dir: Path = BUILD_DIR):
         with np.load(path) as z:
             result.append(dict(z))
     return result
-
-
-def bench_sets(config, sets) -> list:
-    """The ``RenderSet``s of the first frames of the bench scenes (``sets``
-    lists (n_frames, dynamic)) at ``config``'s size and intrinsics, on
-    the bench's straight trajectory."""
-    from dynslam_tpu_torch.io import synthetic as syn
-
-    w, h = config.frame_width, config.frame_height
-    return [RenderSet(
-        f"smoke_frames-{w}x{h}-n{n}-s{SEED}-r{SCENE_ROWS}-v{SPEED}-y"
-        f"{YAW_RATE}" + (f"-dyn{N_DYNAMIC}-rec{RECURRING}" if dynamic
-                         else ""),
-        syn.straight_trajectory(n, speed=SPEED, yaw_rate=YAW_RATE),
-        bench_scene(dynamic), config.intrinsics, config.calibration, w, h)
-        for n, dynamic in sets]
 
 
 # ---------------------------------------------------------------------------

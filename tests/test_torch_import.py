@@ -94,6 +94,9 @@ SLICE_MODULES = [
     "dynslam_tpu_torch.scripts.demo_synthetic",
     "dynslam_tpu_torch.scripts.experiments",
     "dynslam_tpu_torch.scripts.profile_dynamic",
+    # the bench
+    "dynslam_tpu_torch.bench",
+    "dynslam_tpu_torch.scripts.bench_variance",
 ]
 
 
