@@ -217,10 +217,14 @@ and never prints its last line):
 21. the port's bench (``dynslam_tpu_torch/bench.py``): the first 20
     frames of the bench's two sequences (rendered in the script's one
     pool at the start, phases 5 and 8 taking their first frames) written
-    as KITTI folders; one frame of the bench's dynamic loop in this
-    process under a sync census (the frame thread's sites at most phase
-    8's, none on the segmentation worker that uploads the mask planes);
-    then ``python -m dynslam_tpu_torch.bench --frames 20`` itself:
+    as KITTI folders; the bench's static and dynamic loops in this
+    process (``main_static``, ``main_dynamic``, evaluation off), with one
+    dynamic frame under a sync census (the frame thread's sites at most
+    phase 8's, none on the segmentation worker that uploads the mask
+    planes) and the kernels held to their plain versions on those runs'
+    own inputs (K1 and K2 on the static map's last view, K1's volume axis
+    on the dynamic loop's largest object fusion, K2 on its largest object
+    volume); then ``python -m dynslam_tpu_torch.bench --frames 20``:
     static, dynamic, dynamic eval-on and static eval-on at bench.py's
     definition cut to 20 frames (3 warm-up, decay age 200), each in its
     subprocess with its time limit. Checks five lines under bench.py's
@@ -228,11 +232,11 @@ and never prints its last line):
     the card's name and power limit; a reconstructed object; the eval-on
     modes' CSV rows at the counts the CPU test pins; each eval-on mode at
     >= 0.5x its eval-off mode; every kernel launched in every mode; the
-    artifacts under the port's names in ``_build/bench/``. Prints each
-    mode's frame rate beside phases 5's and 8's, its launches and peak
-    memory.
+    artifacts under the port's names in ``_build/bench/`` (the bench's
+    default). Prints each mode's frame rate beside phases 5's and 8's,
+    its launches and peak memory.
 
-Phases 3, 4, 7, 9, 12, 14, 15 and 17-20 also print each kernel's times:
+Phases 3, 4, 7, 9, 12, 14, 15 and 17-21 also print each kernel's times:
 the bare kernel (its prepared C call alone, no Python conversion between
 launches), warm (50 back-to-back launches between two CUDA events) and
 cold (the L2
@@ -4052,11 +4056,10 @@ def run_phase20(base, sdir: Path, config, dconfig, frames, dyn_frames, device,
 
 #: phase 21: the frames of each bench mode (bench.py's 40 cut to a prefix
 #: of its sequences, to keep the whole script near 15 minutes cold: the
-#: 40 frames' renders alone would add ~4 minutes), a mode's time limit (s)
-#: and the frames of the in-process census run
+#: 40 frames' renders alone would add ~4 minutes) and a mode's time limit
+#: (s)
 BENCH_FRAMES = 20
 BENCH_MODE_TIMEOUT = 240
-BENCH_CENSUS_FRAMES = 6
 #: an eval-on mode's frame rate against its eval-off mode's, at least: a
 #: sanity floor (evaluation adds device work but never halves the rate),
 #: not a retry
@@ -4072,22 +4075,34 @@ def prefix(frames: dict, n: int) -> dict:
                                        "poses")}
 
 
-def bench_census(root: str, device, reference: Counter) -> dict:
-    """Frame ``DYN_CENSUS_FRAME`` of the bench's own dynamic loop
-    (``bench.main_dynamic`` in this process over the first frames of
-    ``root``, evaluation off, the segmentation worker uploading the mask
-    planes) under a sync census: the frame thread's sites at most phase
-    8's (``reference``), a constant's first use left out of both, and no
-    site on the worker (its upload goes through pinned memory)."""
+def bench_in_process(roots, frames, device, reference: Counter, flush,
+                     parent) -> dict:
+    """The bench's static and dynamic loops in this process
+    (``bench.main_static`` / ``main_dynamic`` over the first
+    ``BENCH_FRAMES`` frames of ``roots``, evaluation off, the dynamic
+    one's segmentation worker uploading the mask planes), then each
+    kernel held to its plain version on those loops' own inputs: K1 and
+    the pre-pass and K2 on the static map's last view (``carry_scene``),
+    K1's volume axis on the dynamic loop's fusion over the most volumes,
+    the pre-pass and K2 on its largest object volume. Dynamic frame
+    ``DYN_CENSUS_FRAME`` runs under a sync census: the frame thread's
+    sites at most phase 8's (``reference``), a constant's first use left
+    out of both, and no site on the worker (its upload goes through
+    pinned memory). ``frames``: the rendered (static, dynamic) sets."""
+    import itertools
+
     from dynslam_tpu_torch import bench
     from dynslam_tpu_torch import device as device_mod
-    from dynslam_tpu_torch.pipeline import builder
+    from dynslam_tpu_torch.pipeline import builder, fused_dynamic
 
-    build, got = builder.build_fused, {}
+    build, pipes, got = builder.build_fused, {}, {}
 
-    def build_fused(*args, **kw):
-        pipe, inp, segp = build(*args, **kw)
-        process, frame = pipe.process_frame, iter(range(BENCH_CENSUS_FRAMES))
+    def build_fused(root, cfg, **kw):
+        pipe, inp, segp = build(root, cfg, **kw)
+        pipes[cfg.dynamic_mode] = pipe
+        if not cfg.dynamic_mode:
+            return pipe, inp, segp
+        process, frame = pipe.process_frame, itertools.count()
 
         def process_frame(*a, **k):
             if next(frame) == DYN_CENSUS_FRAME:
@@ -4098,12 +4113,16 @@ def bench_census(root: str, device, reference: Counter) -> dict:
         pipe.process_frame = process_frame
         return pipe, inp, segp
 
-    builder.build_fused = build_fused
+    recorder = FusionRecorder(fused_dynamic.integrate_many)
+    builder.build_fused, fused_dynamic.integrate_many = build_fused, recorder
     try:
-        bench.main_dynamic(device=device, root=root,
-                           n_frames=BENCH_CENSUS_FRAMES)
+        bench.main_static(device=device, root=roots[0],
+                          n_frames=BENCH_FRAMES)
+        bench.main_dynamic(device=device, root=roots[1],
+                           n_frames=BENCH_FRAMES)
     finally:
         builder.build_fused = build
+        fused_dynamic.integrate_many = recorder.fn
     first_use = source_site(device_mod._constant, "torch.tensor(")
     own = got["own"] - Counter({first_use: got["own"][first_use]})
     ref = reference - Counter({first_use: reference[first_use]})
@@ -4112,13 +4131,24 @@ def bench_census(root: str, device, reference: Counter) -> dict:
             f"the bench's dynamic frame {DYN_CENSUS_FRAME}: frame-thread "
             f"syncs {dict(own)} (phase 8: {dict(ref)}), the worker's "
             f"{dict(got['other'])}")
-    return dict(own=own, ref=ref)
+    spipe, dpipe = pipes[False], pipes[True]
+    scene = carry_scene(spipe, frames[0], device)
+    track = max((t for t in dpipe.tracker.active_tracks.values()
+                 if t.has_reconstruction()),
+                key=lambda t: t.reconstruction.get_used_block_count())
+    return dict(own=own, ref=ref,
+                k1=check_integrate(spipe.cfg, scene, flush, parent),
+                k2=check_raycast(spipe.cfg, scene, flush, parent),
+                k1v=check_integrate_many(recorder.best, flush, parent),
+                k2o=check_instance_raycast(dpipe, track, frames[1], flush,
+                                           parent))
 
 
 def run_bench(out: Path) -> dict:
-    """``python -m dynslam_tpu_torch.bench --out out`` in a subprocess (it
-    runs each mode in its own, with its time limit): its JSON lines, and
-    from its stderr (``out/bench_stderr.log``) each mode's kernel launches
+    """``python -m dynslam_tpu_torch.bench`` in a subprocess (it runs each
+    mode in its own, with its time limit; its artifacts go to ``out``, the
+    bench's default): its JSON lines, and from its stderr
+    (``out/bench_stderr.log``) each mode's kernel launches
     (counted from 0 in each mode's process), peak memory and the static
     voxel-ops. Raises if it exits non-zero."""
     import re
@@ -4127,9 +4157,8 @@ def run_bench(out: Path) -> dict:
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     log = out / "bench_stderr.log"
-    cmd = [sys.executable, "-m", "dynslam_tpu_torch.bench", "--out",
-           str(out), "--timeout", str(BENCH_MODE_TIMEOUT), "--frames",
-           str(BENCH_FRAMES)]
+    cmd = [sys.executable, "-m", "dynslam_tpu_torch.bench", "--timeout",
+           str(BENCH_MODE_TIMEOUT), "--frames", str(BENCH_FRAMES)]
     t0 = time.perf_counter()
     with open(log, "w") as err:
         proc = subprocess.run(cmd, cwd=str(ROOT), stdout=subprocess.PIPE,
@@ -4701,21 +4730,60 @@ def main(argv=None) -> int:
         staged_out=out))
 
     # 21. the port's bench
+    from dynslam_tpu_torch import bench
+
     t21 = time.perf_counter()
     roots = [ensure_seq(d, n_frames=BENCH_FRAMES, frames=f)
              for d, f in zip((False, True), bench_seqs)]
-    del bench_seqs
     say("bench", f"the bench sequences written as KITTI folders {roots} in "
                  f"{time.perf_counter() - t21:.1f} s")
-    bc = bench_census(roots[1], device, dcensus)
+    bc = bench_in_process(roots, bench_seqs, device, dcensus, flush, parent)
+    del bench_seqs
     say("bench", f"the bench's dynamic loop in this process "
-                 f"({BENCH_CENSUS_FRAMES} frames, evaluation off, the mask "
-                 f"planes from the segmentation worker): host syncs on the "
-                 f"frame thread in frame {DYN_CENSUS_FRAME}: "
+                 f"({BENCH_FRAMES} frames, evaluation off, the mask planes "
+                 f"from the segmentation worker): host syncs on the frame "
+                 f"thread in frame {DYN_CENSUS_FRAME}: "
                  f"{sum(bc['own'].values())} {dict(bc['own'])} (phase 8: "
                  f"{sum(bc['ref'].values())}; a constant's first use left "
                  f"out of both), none on the worker")
-    bout = BUILD_DIR / "bench"
+    bk1, bk2, bk1v, bk2o = (bc[k] for k in ("k1", "k2", "k1v", "k2o"))
+    say("K1-bench", f"integrate vs integrate_ref on the bench static map's "
+                    f"last view (frame {BENCH_FRAMES - 1}, {bk1['blocks']} "
+                    f"visible blocks, {bk1['pixels']} distinct pixels "
+                    f"read): {bk1['exact'] * 100:.4f}% words bit-exact, max "
+                    f"|dsdf| {bk1['max_abs_err']:.3g}, |dw| {bk1['dw']} q, "
+                    f"|dcolor| {bk1['dcolor']}")
+    say("K1-bench", timing_text(bk1))
+    say("K2-bench-pre", f"candidate bitmap equals candidate_bits_ref "
+                        f"exactly ({bk2['pre']['n_cand']} candidate cells "
+                        f"of {bk2['pre']['n_live']} visible blocks)")
+    say("K2-bench-pre", timing_text(bk2["pre"]))
+    say("K2-bench", f"raycast vs raycast_ref on the same map: hit agreement "
+                    f"{bk2['agree'] * 100:.4f}%, median |ddepth| "
+                    f"{bk2['median']:.3g} m, max {bk2['max_abs_err']:.3g} "
+                    f"m, hit {bk2['hit']:.3f}; {reads_text(bk2['reads'])}")
+    say("K2-bench", timing_text(bk2))
+    say("K1-bench-vol", f"integrate_many over the bench dynamic loop's "
+                        f"{len(bk1v['vols'])} object volumes {bk1v['vols']} "
+                        f"({bk1v['blocks']} visible blocks) vs "
+                        f"integrate_ref per volume: "
+                        f"{bk1v['exact'] * 100:.4f}% words bit-exact (worst"
+                        f" volume), max |dsdf| {bk1v['max_abs_err']:.3g}, "
+                        f"|dw| {bk1v['dw']} q, |dcolor| {bk1v['dcolor']}")
+    say("K1-bench-vol", timing_text(bk1v))
+    say("K2-bench-obj-pre", f"candidate bitmap of track {bk2o['track']}'s "
+                            f"volume equals candidate_bits_ref exactly "
+                            f"({bk2o['pre']['n_cand']} candidate cells of "
+                            f"{bk2o['pre']['n_live']} visible blocks)")
+    say("K2-bench-obj-pre", timing_text(bk2o["pre"]))
+    say("K2-bench-obj", f"raycast_instance of track {bk2o['track']} from "
+                        f"its frame {bk2o['frame']} camera vs raycast_ref: "
+                        f"hit agreement {bk2o['agree'] * 100:.4f}%, median "
+                        f"|ddepth| {bk2o['median']:.3g} m, max "
+                        f"{bk2o['max_abs_err']:.3g} m, {bk2o['hits']} hits;"
+                        f" {reads_text(bk2o['reads'])}")
+    say("K2-bench-obj", timing_text(bk2o))
+    bout = bench.OUT_DIR
     bres = run_bench(bout)
     bfps = check_bench(bres, bout, kind, smi)
     for res, launches, peak in zip(bres["lines"], bres["launches"],
@@ -4891,14 +4959,17 @@ def main(argv=None) -> int:
             kernel_entry(f"raycast/{tag}", k2_src, rl["raycast"],
                          rl["raycast"] / frames_run, times[2]),
         ]
-    # phase 21's modes (each mode's process counts its own launches): K1
-    # with phase 3's times (static) or phase 7's (dynamic: the volume axis
-    # too); K2 with phase 4's (the static map's renders) or, dynamic with
-    # evaluation on, which adds the object renders, phase 9's
+    # phase 21's modes (each mode's process counts its own launches), with
+    # the times and errors on the in-process bench loops' inputs: K1 on
+    # the static map's last view (static) or the volume axis's largest
+    # fusion (dynamic); K2 on the static map (the static map's renders)
+    # or, dynamic with evaluation on, which adds the object renders, on
+    # the largest object volume
     for (mode, ev), launches in zip(BENCH_MODES, bres["launches"]):
         tag = f"bench-{mode}" + ("-eval" if ev else "")
-        times = ((k1 if mode == "static" else k1v),) + (
-            (opre, k2o) if mode == "dynamic" and ev else (pre, k2))
+        times = ((bk1 if mode == "static" else bk1v),) + (
+            (bk2o["pre"], bk2o) if mode == "dynamic" and ev
+            else (bk2["pre"], bk2))
         per = BENCH_FRAMES - 1
         kernels += [
             kernel_entry(f"integrate/{tag}", k1_src, launches["integrate"],

@@ -36,7 +36,8 @@ the native readers, then runs static, dynamic, dynamic eval-on and static
 eval-on, each in a subprocess with a timeout, printing each mode's JSON
 line as it ends and the static line again last; it writes
 ``BENCH_TORCH_DYNAMIC.json`` and ``BENCH_TORCH_EVAL.json`` into ``--out``
-(default: the repository root) and exits 1 if a mode failed. Each line:
+(default: ``dynslam_tpu_torch/_build/bench/``) and exits 1 if a mode
+failed. Each line:
 ``{"metric", "value": fps, "unit": "fps", "vs_baseline": fps / 2.5, ...,
 "device", "power_limit_w"}``; ``vs_baseline`` is against the reference's
 ~2.5 Hz (ICRA'18).
@@ -62,6 +63,8 @@ from dynslam_tpu_torch.device import DeviceLike, resolve_device, upload
 from dynslam_tpu_torch.scripts import bench_setup as bs
 
 ROOT = Path(__file__).resolve().parent.parent
+#: where the orchestrator writes its artifacts unless told otherwise
+OUT_DIR = bs.BUILD_DIR / "bench"
 N_FRAMES = bs.N_FRAMES
 WARMUP = 3
 #: a mode's time limit in the orchestrator
@@ -423,7 +426,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--frames", type=int, default=N_FRAMES,
                     help=f"frames a mode runs (a prefix of the bench "
                          f"sequences; default {N_FRAMES})")
-    ap.add_argument("--out", type=Path, default=ROOT,
+    ap.add_argument("--out", type=Path, default=OUT_DIR,
                     help="where the orchestrator writes its JSON artifacts")
     ap.add_argument("--timeout", type=int, default=MODE_TIMEOUT,
                     help="seconds a mode may take in the orchestrator")

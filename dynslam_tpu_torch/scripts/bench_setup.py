@@ -70,92 +70,78 @@ def bench_config(dynamic: bool, k4: bool = False,
     )
 
 
-def bench_intrinsics(width: int = W, height: int = H):
+def bench_intrinsics():
     """(intrinsics, stereo calibration) of the bench rig (bench.py:80-81):
-    KITTI's 1242x375 camera, scaled with the frame for a smaller one."""
+    KITTI's 1242x375 camera."""
     from dynslam_tpu_torch.config import Intrinsics, StereoCalibration
 
-    s = width / W
-    return (Intrinsics(707.0912 * s, 707.0912 * s, width / 2.0,
-                       183.1104 * (height / H)),
-            StereoCalibration(0.537150654273, 707.0912 * s))
+    return (Intrinsics(707.0912, 707.0912, W / 2.0, 183.1104),
+            StereoCalibration(0.537150654273, 707.0912))
 
 
-def seq_set(dynamic: bool, n_frames: int = N_FRAMES, width: int = W,
-            height: int = H) -> "RenderSet":
+def seq_set(dynamic: bool, n_frames: int = N_FRAMES) -> "RenderSet":
     """The ``RenderSet`` of a bench sequence: the frames ``ensure_seq``
     writes, with each frame's LIDAR scan."""
     from dynslam_tpu_torch.io import synthetic as syn
 
-    intr, calib = bench_intrinsics(width, height)
+    intr, calib = bench_intrinsics()
     return RenderSet(
-        f"bench_seq-{'dyn' if dynamic else 'static'}-{width}x{height}-n"
-        f"{n_frames}-s{SEED}-r{SCENE_ROWS}-v{SPEED}-y{YAW_RATE}"
+        f"bench_seq-{'dyn' if dynamic else 'static'}-{W}x{H}-n{n_frames}"
+        f"-s{SEED}-r{SCENE_ROWS}-v{SPEED}-y{YAW_RATE}"
         + (f"-dyn{N_DYNAMIC}-rec{RECURRING}" if dynamic else ""),
         syn.straight_trajectory(n_frames, speed=SPEED, yaw_rate=YAW_RATE),
-        bench_scene(dynamic), intr, calib, width, height,
+        bench_scene(dynamic), intr, calib, W, H,
         keep=("left", "right", "depth", "objid", "velodyne"))
 
 
-def seq_root(dynamic: bool, n_frames: int = N_FRAMES, width: int = W,
-             height: int = H) -> str:
+def seq_root(dynamic: bool, n_frames: int = N_FRAMES) -> str:
     return str(BUILD_DIR / (f"bench_seq_{'dyn' if dynamic else 'static'}_"
-                            f"{width}x{height}x{n_frames}"))
+                            f"{W}x{H}x{n_frames}"))
+
+
+def write_seq(root: str, rset: "RenderSet", frames: dict) -> None:
+    """``render_sets``' frames of ``rset``, LIDAR scans included, as a
+    KITTI-layout folder (``write_kitti_frames``, no ELAS dumps): the files
+    ``write_kitti_sequence`` writes for the same scene, poses and
+    camera."""
+    from dynslam_tpu_torch.io import synthetic as syn
+
+    def rgb(gray):
+        return np.repeat(gray[..., None], 3, axis=-1)
+
+    syn.write_kitti_frames(
+        root, syn.SyntheticScene.default_scene(**rset.scene),
+        np.asarray(rset.poses),
+        syn.make_calibration(rset.intrinsics, rset.calib),
+        (dict(left=rgb(frames["left"][f]), right=rgb(frames["right"][f]),
+              depth_m=frames["depth"][f], object_id=frames["objid"][f],
+              velodyne=frames["velodyne"][f][:frames["velodyne_n"][f]])
+         for f in range(len(rset.poses))),
+        with_dynamic=rset.scene.get("with_dynamic", False),
+        write_elas_xml=False)
 
 
 def ensure_seq(dynamic: bool, root: Optional[str] = None,
-               n_frames: int = N_FRAMES, width: int = W, height: int = H,
+               n_frames: int = N_FRAMES,
                frames: Optional[dict] = None) -> str:
     """The bench scene as a KITTI-layout sequence with LIDAR scans and
     MNC dumps (the inputs the reference's own loop reads), written once
-    under ``_build/`` (or ``root``) and kept: byte for byte what
-    ``write_kitti_sequence`` writes for bench.py's arguments
-    (``bench.py:69-96``), its frames rendered in ``render_sets``' process
-    pool (or taken from ``frames``, that pool's output for ``seq_set``)."""
-    from dynslam_tpu_torch.io import synthetic as syn
-    from dynslam_tpu_torch.io.calib import (
-        write_kitti_calibration, write_kitti_poses,
-    )
-
-    root = root or seq_root(dynamic, n_frames, width, height)
+    under ``_build/`` (or ``root``) and kept: what ``write_kitti_sequence``
+    writes for bench.py's arguments (``bench.py:69-96``), its frames
+    rendered in ``render_sets``' process pool (or taken from ``frames``,
+    that pool's output for ``seq_set``)."""
+    root = root or seq_root(dynamic, n_frames)
     marker = os.path.join(root, ".bench_complete")
     if os.path.exists(marker):
         return root
-    rset = seq_set(dynamic, n_frames, width, height)
+    rset = seq_set(dynamic, n_frames)
     if frames is None:
         print(f"[bench_setup] rendering the "
               f"{'dynamic' if dynamic else 'static'} bench sequence into "
               f"{root} (once, ~20 s a frame on each core)", file=sys.stderr)
         frames = render_sets([rset])[0]
     shutil.rmtree(root, ignore_errors=True)
-    for sub in ("image_2", "image_3", "velodyne", "precomputed-depth/Frames",
-                "precomputed-depth-dispnet", "seg_image_2/mnc"):
-        os.makedirs(os.path.join(root, sub), exist_ok=True)
-    # the poses in float64, as the renderer took them (the cache holds
-    # float32 copies)
-    poses = np.asarray(rset.poses)
-    write_kitti_calibration(os.path.join(root, "calib.txt"),
-                            syn.make_calibration(rset.intrinsics, rset.calib))
-    write_kitti_poses(os.path.join(root, "ground-truth-poses.txt"), poses)
-    scene = syn.SyntheticScene.default_scene(**rset.scene)
-    dyn = [i for i, box in enumerate(scene.boxes) if box.is_dynamic]
-    tracklets = []
-    for f in range(n_frames):
-        objid = frames["objid"][f]
-        masks = [objid == i + 1 for i in dyn]
-        gray = [np.repeat(frames[k][f][..., None], 3, axis=-1)
-                for k in ("left", "right")]
-        syn.write_kitti_frame(
-            root, f, gray[0], gray[1], frames["depth"][f],
-            object_masks=masks if (dynamic or any(
-                m.sum() >= 16 for m in masks)) else None,
-            velodyne_points=frames["velodyne"][f][
-                :frames["velodyne_n"][f]],
-            write_elas_xml=False)
-        tracklets += syn.tracklet_lines(scene, f, poses[f], zip(dyn, masks))
-    if tracklets:
-        with open(os.path.join(root, "tracklets.txt"), "w") as tf:
-            tf.write("\n".join(tracklets) + "\n")
+    write_seq(root, rset, frames)
     open(marker, "w").close()
     return root
 

@@ -13,15 +13,16 @@ package's ``bench.py``, on the CPU:
   ``N_FRAMES``, ``ensure_seq``, ``load_frames`` and ``bench_config``
   patched, its renders by the Pallas raycast in interpret mode
   (``jax_kernel_renders``), the port fed JAX's RANSAC draws through a
-  wrapped ``build_fused`` (``test_torch_fused_cli.py``). The result
+  wrapped ``build_fused`` (``test_torch_fused_cli.py``), which also
+  gives JAX's evaluation a CSV directory of the test's own. The result
   lines' keys and fields, the CSVs (``compare_csv_dirs``: max(5, 3%) a
   bucket; ``check_witness``), the static voxel-ops a frame, and at
   dispatch lag 1 and 2 with ``--verbose`` the ``[tracker]`` lines, text
   for text;
 - ``process_frame``'s ``masks_dev`` (the bench worker's pre-uploaded
   bit-planes) changes no output word;
-- ``ensure_seq``'s pool-rendered folder equals ``write_kitti_sequence``'s
-  byte for byte;
+- ``ensure_seq``'s writer over pool-rendered frames equals
+  ``write_kitti_sequence``'s folder byte for byte;
 - ``scripts/bench_variance.py`` over a stub bench."""
 
 import contextlib
@@ -184,16 +185,20 @@ def _files(root):
 
 @pytest.mark.parametrize("dynamic", [False, True])
 def test_ensure_seq_equals_write_kitti_sequence(tmp_path, dynamic):
-    """Every file of ``ensure_seq``'s folder, whose frames ``render_sets``
-    renders, equals ``write_kitti_sequence``'s for bench.py's arguments
-    (``bench.py:80-95``) at 160x120x4."""
-    n = 4
-    frames = tbs.render_sets([tbs.seq_set(dynamic, n, W, H)],
-                             tmp_path / "cache")[0]
-    got = tbs.ensure_seq(dynamic, root=str(tmp_path / "pool"), n_frames=n,
-                         width=W, height=H, frames=frames)
+    """Every file of ``ensure_seq``'s folder (``write_seq`` over the
+    frames ``render_sets`` rendered) equals ``write_kitti_sequence``'s for
+    bench.py's arguments (``bench.py:80-95``), here at 160x120x4 with the
+    bench camera scaled to that size."""
+    n, s = 4, W / tbs.W
+    intr = tconfig.Intrinsics(707.0912 * s, 707.0912 * s, W / 2.0,
+                              183.1104 * H / tbs.H)
+    calib = tconfig.StereoCalibration(0.537150654273, intr.fx)
+    rset = tbs.seq_set(dynamic, n)._replace(
+        key=f"small-{dynamic}", intrinsics=intr, calib=calib, width=W,
+        height=H)
+    got = str(tmp_path / "pool")
+    tbs.write_seq(got, rset, tbs.render_sets([rset], tmp_path / "cache")[0])
     want = str(tmp_path / "serial")
-    intr, calib = tbs.bench_intrinsics(W, H)
     write_kitti_sequence(
         want, num_frames=n, width=W, height=H, intrinsics=intr, calib=calib,
         with_dynamic=dynamic, n_dynamic=3, write_velodyne=True,
@@ -202,7 +207,7 @@ def test_ensure_seq_equals_write_kitti_sequence(tmp_path, dynamic):
                       else dict(n_rows=11)),
         trajectory_kwargs=dict(speed=0.8, yaw_rate=0.003))
     names = _files(want)
-    assert _files(got) == sorted(names + [".bench_complete"])
+    assert _files(got) == names
     assert any(f.startswith("seg_image_2") for f in names) == dynamic
     for name in names:
         with open(os.path.join(got, name), "rb") as a, \
@@ -292,13 +297,16 @@ class _Run:
                 if ln.startswith("[tracker]")]
 
 
-def _wrap_build(mp, module, run, after=None):
+def _wrap_build(mp, module, run, after=None, csv=None):
     """Make ``module.build_fused`` keep the pipeline in ``run``, log its
     evaluation's submits, record each static frame's voxel counters and
-    call ``after(pipe)``."""
+    call ``after(pipe)``; with ``csv``, write the CSVs there instead of
+    the caller's directory."""
     build = module.build_fused
 
     def build_fused(root, cfg, **kw):
+        if csv is not None:
+            kw["csv_out_dir"] = csv
         pipe, inp, segp = build(root, cfg, **kw)
         run.pipe, run.log = pipe, SubmitLog(pipe.evaluation)
         if after is not None:
@@ -323,9 +331,16 @@ def _run_both(seq, tmp_path_factory, dynamic: bool, argv):
     the flags both read (JAX from ``sys.argv``, the port through its
     parser)."""
     jrun, trun = _Run(), _Run()
-    csv = str(tmp_path_factory.mktemp("benchcsv"))
+    jrun.csv, csv = (str(tmp_path_factory.mktemp(k))
+                     for k in ("benchcsv_jax", "benchcsv"))
     with pytest.MonkeyPatch.context() as mp:
         jb = _load_bench()
+        # JAX's bench writes its CSVs into a fixed directory under /tmp
+        # (bench.py:192, :322) and counts their rows there: both go to
+        # this test's own directory instead
+        count = jb.count_csv_rows
+        mp.setattr(jb, "count_csv_rows",
+                   lambda csv_dir, suffix: count(jrun.csv, suffix))
         mp.setattr(jb, "W", W)
         mp.setattr(jb, "H", H)
         mp.setattr(jb, "N_FRAMES", N)
@@ -338,14 +353,12 @@ def _run_both(seq, tmp_path_factory, dynamic: bool, argv):
         fill = jax_kernel_renders(mp)
         mp.setattr(jfused, "FusedPipeline", _PallasFused)
         mp.setattr(jfd, "FusedDynamicPipeline", _PallasDyn)
-        _wrap_build(mp, jbuilder, jrun)
+        _wrap_build(mp, jbuilder, jrun, csv=jrun.csv)
         main = jb.main_dynamic if dynamic else jb.main_static
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
             jrun.res = main(eval_on=True, _timed=False)
         jrun.stderr = err.getvalue()
-        jrun.csv = "/tmp/dynslam_bench_csv_" + ("dyn" if dynamic
-                                                else "static")
 
         def after(pipe):
             key = jrun.pipe.base_key
