@@ -127,12 +127,19 @@ and never prints its last line):
     its 1242x375 forward on the card against a CPU copy (TF32 off), then
     30 Adam steps at batch 2 against the static frames' disparity ``bf /
     depth``, whose loss must fall below 0.7 of the first; (b) SegNet-lite
-    trained 600 steps on the dynamic frames' car masks but the last, the
-    learned provider on that held-out frame (a detection overlapping a car
-    at IoU > 0.5; the same boxes and >= 99.9% equal masks from a CPU copy)
-    and a ``save_params``/``load_params`` round trip; (c) the sharded training
-    step at world size 1 over NCCL against the unsharded one, ``entry()``
-    and ``dryrun_multichip(1)`` on the card; (d) static and dynamic batch
+    trained 600 steps on the dynamic frames' car masks but the last (the
+    mean of the last 10 losses under the first 10's), the learned
+    provider on that held-out frame (a detection overlapping a car at IoU
+    > 0.5; the same boxes and >= 99.9% equal masks from a CPU copy) and a
+    ``save_params``/``load_params`` round trip. Both train under
+    ``torch.use_deterministic_algorithms(True)`` (cuDNN deterministic, not
+    benchmarking; ``CUBLAS_WORKSPACE_CONFIG`` set before torch loads), and
+    a second training from the same init gives the same losses bit for bit
+    (all 30 of (a), the first 50 of (b)); then the inference and both
+    steps are timed again with the upsampling as ``F.interpolate``; (c)
+    the sharded training step at world size 1 over NCCL against the
+    unsharded one, ``entry()`` and ``dryrun_multichip(1)`` on the card;
+    (d) static and dynamic batch
     evaluation of 4 sequence maps (sequence s is static frames s..s+3; the
     dynamic run adds phase 8's car masks and the shipped object volumes)
     at the bench configuration: finite metrics within JAX's test bounds on
@@ -214,7 +221,7 @@ and never prints its last line):
     the dynamic fused CLI over it: (c)'s checks, and its outputs equal
     (c)'s byte for byte.
 
-21. the port's bench (``dynslam_tpu_torch/bench.py``): the first 20
+21. the port's bench (``dynslam_tpu_torch/bench.py``): the first 12
     frames of the bench's two sequences (rendered in the script's one
     pool at the start, phases 5 and 8 taking their first frames) written
     as KITTI folders; the bench's static and dynamic loops in this
@@ -224,9 +231,9 @@ and never prints its last line):
     planes) and the kernels held to their plain versions on those runs'
     own inputs (K1 and K2 on the static map's last view, K1's volume axis
     on the dynamic loop's largest object fusion, K2 on its largest object
-    volume); then ``python -m dynslam_tpu_torch.bench --frames 20``:
+    volume); then ``python -m dynslam_tpu_torch.bench --frames 12``:
     static, dynamic, dynamic eval-on and static eval-on at bench.py's
-    definition cut to 20 frames (3 warm-up, decay age 200), each in its
+    definition cut to 12 frames (3 warm-up, decay age 200), each in its
     subprocess with its time limit. Checks five lines under bench.py's
     metric names (the static one first and last), each with a value > 0,
     the card's name and power limit; a reconstructed object; the eval-on
@@ -247,12 +254,14 @@ the bytes it writes, over 3.35 TB/s, or operations over 67 TFLOP/s fp32,
 whichever is larger; K1 counts the distinct pixels its voxels project
 to, the march the distinct pool words a replay of ``raycast_ref``
 samples) and the share of it the bare kernel reaches; and the plain
-version's time.
+version's time (the march's on the call that the check compares with,
+which takes seconds; the others' median after a warm-up call).
 
-Then it prints the card's name and power limit (nvidia-smi), one JSON
-line with an entry per kernel and path (launches on the main path and a
-frame, error, bare/cold/wrapper/parent times, bound and share), and last
-``{"ok": true, "device": {...}}``.
+A ``[clock]`` line gives each phase's start, in seconds since the
+script began. Then it prints the card's name and power limit
+(nvidia-smi), one JSON line with an entry per kernel and path (launches
+on the main path and a frame, error, bare/cold/wrapper/parent times,
+bound and share), and last ``{"ok": true, "device": {...}}``.
 
 The frames (the bench's two sequences, the soaks' laps and vo_drift's
 sequence) are rendered with the port's numpy renderer in one pool of
@@ -275,6 +284,10 @@ import warnings
 from collections import Counter
 from pathlib import Path
 from typing import Optional
+
+# cuBLAS takes its workspace setting when it makes its first handle; phase
+# 17 trains under torch.use_deterministic_algorithms, which needs this one
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = ROOT / "dynslam_tpu_torch"
@@ -306,10 +319,6 @@ DET_SCORE, DET_MIN_PX = 0.98, 45
 K1_MIN_EXACT = 0.9999  # packed words bit-exact; the rest within 1 quantum
 K2_MIN_HIT_AGREE = 0.999
 K2_MAX_MEDIAN_DEPTH = 1e-4  # m
-#: timed calls of the march's plain version after its warm-up call: it
-#: takes 2-12 s a call at KITTI size, and each check also runs it to
-#: compare and to count the words it reads
-PLAIN_MARCH_REPS = 1
 #: the raycast stage of a static frame: the pre-pass (bitmap clear and
 #: kernel) and the march (header clear and kernel), and no small ops
 RAYCAST_STAGE_MAX_LAUNCHES = 8
@@ -378,6 +387,22 @@ def launch_counts() -> dict:
     return dict(integrate=K1.integrate.launches,
                 candidates=K2.candidate_bits.launches,
                 raycast=K2.raycast.launches)
+
+
+def plain_call(fn):
+    """(fn(), its device ms between two CUDA events): one call of a plain
+    version that the check runs anyway to compare, timed as it runs (the
+    plain march takes seconds, so a second call would add nothing but
+    time)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def median_ms(fn, reps: int) -> float:
@@ -817,9 +842,10 @@ def compare_march(got, ref, what: str) -> dict:
 
 
 def march_times(cfg, state, grid, origin, bits, c2w, intr, flush, pre,
-                parent, cmp, reps: int, plain_reps: int) -> dict:
-    """The march kernel's wrapper, bare, parent and plain times, and its
-    bound from the words this render reads."""
+                parent, cmp, reps: int, plain_ms: float) -> dict:
+    """The march kernel's wrapper, bare and parent times beside
+    ``plain_ms`` (``plain_call``'s), and its bound from the words this
+    render reads."""
     import torch
 
     from dynslam_tpu_torch.ops import raycast as K2
@@ -836,14 +862,12 @@ def march_times(cfg, state, grid, origin, bits, c2w, intr, flush, pre,
 
     times = kernel_times(launch, flush,
                          parent_launch(parent, "raycast", launch, v1))
-    plain_ms = median_ms(lambda: K2.raycast_ref(*rargs), plain_reps)
     return dict(wrapper_ms=wrapper_ms, plain_ms=plain_ms, **times,
                 **march_bound(cfg, bits.shape[0], cmp["reads"],
                               cmp["samples"]))
 
 
-def check_raycast(cfg, scene, flush, parent=None, kernel_reps: int = 20,
-                  plain_reps: int = PLAIN_MARCH_REPS) -> dict:
+def check_raycast(cfg, scene, flush, parent=None, kernel_reps: int = 20) -> dict:
     """The pre-pass and K2 against ``candidate_bits_ref`` and
     ``raycast_ref`` on the map after K1 fused frame 1."""
     import torch
@@ -861,8 +885,7 @@ def check_raycast(cfg, scene, flush, parent=None, kernel_reps: int = 20,
     pre.update(slots=s["slots"], mask=s["mask"])
     rargs = (cfg, state, s["grid"], s["origin"], pre["bits"], s["c2w"], intr)
     got = K2._march_cuda(*rargs)
-    ref = K2.raycast_ref(*rargs)
-    torch.cuda.synchronize()
+    ref, plain_ms = plain_call(lambda: K2.raycast_ref(*rargs))
     cmp = compare_march(got, ref, "K2")
     cmp["reads"] = march_reads(*rargs, ref)
     hit = got.hit.double().mean().item()
@@ -873,7 +896,7 @@ def check_raycast(cfg, scene, flush, parent=None, kernel_reps: int = 20,
     gt_err = (got.depth - gt).abs()[gt_ok].median().item()
     times = march_times(cfg, state, s["grid"], s["origin"], pre["bits"],
                         s["c2w"], intr, flush, pre, parent, cmp,
-                        kernel_reps, plain_reps)
+                        kernel_reps, plain_ms)
     return dict(cmp, hit=hit, gt_err=gt_err, pre=pre, **times)
 
 
@@ -1301,8 +1324,7 @@ def check_integrate_many(rec, flush, parent=None, reps: int = 20,
 
 
 def check_instance_raycast(pipe, track, frames, flush, parent=None,
-                           kernel_reps: int = 20,
-                           plain_reps: int = PLAIN_MARCH_REPS) -> dict:
+                           kernel_reps: int = 20) -> dict:
     """The pre-pass and K2 on the track's object volume from the camera of
     its last fused frame (``raycast_instance``'s inputs) against
     ``candidate_bits_ref`` and ``raycast_ref``, and their times."""
@@ -1330,8 +1352,7 @@ def check_instance_raycast(pipe, track, frames, flush, parent=None,
     pre.update(slots=slots, mask=mask)
     rargs = (icfg, state, grid, origin, pre["bits"], c2w, pipe.intr_vec)
     got = K2._march_cuda(*rargs)
-    ref = K2.raycast_ref(*rargs)
-    torch.cuda.synchronize()
+    ref, plain_ms = plain_call(lambda: K2.raycast_ref(*rargs))
     cmp = compare_march(got, ref, "K2 on an object volume")
     cmp["reads"] = march_reads(*rargs, ref)
     if cmp["hits"] < 500:
@@ -1355,7 +1376,7 @@ def check_instance_raycast(pipe, track, frames, flush, parent=None,
     s_ok = on_car & (sd > 0)
     stereo_err = (sd - gt)[s_ok]
     times = march_times(*rargs, flush, pre, parent, cmp, kernel_reps,
-                        plain_reps)
+                        plain_ms)
     return dict(cmp, pre=pre, car_px=int(on_car.sum()),
                 gt_err=err.abs().median().item(), gt_bias=err.median().item(),
                 stereo_err=stereo_err.abs().median().item(),
@@ -1556,8 +1577,7 @@ def check_dynamic_eval(res, off: dict) -> dict:
 
 
 def check_crop_raycast(pipe, crops: CropRecorder, flush, parent=None,
-                       kernel_reps: int = 20,
-                       plain_reps: int = PLAIN_MARCH_REPS) -> dict:
+                       kernel_reps: int = 20) -> dict:
     """Phase 12: the pre-pass and K2 in the crop viewport — the largest
     object volume at the end of phase 11, in the viewport of its last crop
     render there — against
@@ -1589,8 +1609,7 @@ def check_crop_raycast(pipe, crops: CropRecorder, flush, parent=None,
     pre.update(slots=slots, mask=mask)
     rargs = (icfg, state, grid, origin, pre["bits"], c2w, intr)
     got = K2._march_cuda(*rargs)
-    ref = K2.raycast_ref(*rargs)
-    torch.cuda.synchronize()
+    ref, plain_ms = plain_call(lambda: K2.raycast_ref(*rargs))
     cmp = compare_march(got, ref, "K2 in the crop viewport")
     cmp["reads"] = march_reads(*rargs, ref)
     if cmp["hits"] < 200:
@@ -1602,7 +1621,7 @@ def check_crop_raycast(pipe, crops: CropRecorder, flush, parent=None,
     edge = compare_march(K2._march_cuda(*eargs), K2.raycast_ref(*eargs),
                          f"K2 in a {ecfg.height}x{ecfg.width} crop viewport")
     times = march_times(*rargs, flush, pre, parent, cmp, kernel_reps,
-                        plain_reps)
+                        plain_ms)
     return dict(cmp, pre=pre, slot=slot, u0=u0, v0=v0, edge=edge,
                 edge_hw=(ecfg.height, ecfg.width),
                 blocks=int(state.valid.sum()), **times)
@@ -1906,8 +1925,7 @@ def free_pose(c2w, up=3.0, back=6.0, pitch_deg=15.0):
 
 
 def check_view_raycast(cfg, state, c2w_np, intr, flush, parent, what,
-                       min_hits: int, kernel_reps: int = 20,
-                       plain_reps: int = PLAIN_MARCH_REPS) -> dict:
+                       min_hits: int, kernel_reps: int = 20) -> dict:
     """The pre-pass and K2 on ``state`` from ``c2w_np`` (host 4x4), the
     window and visible list built at that pose as ``MapEngine`` and the
     pool build them, against ``candidate_bits_ref`` and ``raycast_ref``,
@@ -1929,15 +1947,14 @@ def check_view_raycast(cfg, state, c2w_np, intr, flush, parent, what,
     pre.update(slots=slots, mask=mask)
     rargs = (cfg, state, grid, origin, pre["bits"], c2w, intr)
     got = K2._march_cuda(*rargs)
-    ref = K2.raycast_ref(*rargs)
-    torch.cuda.synchronize()
+    ref, plain_ms = plain_call(lambda: K2.raycast_ref(*rargs))
     cmp = compare_march(got, ref, what)
     cmp["reads"] = march_reads(*rargs, ref)
     if cmp["hits"] < min_hits:
         raise AssertionError(f"{what}: {cmp['hits']} hits (need >= "
                              f"{min_hits})")
     times = march_times(*rargs, flush, pre, parent, cmp, kernel_reps,
-                        plain_reps)
+                        plain_ms)
     return dict(cmp, pre=pre, **times)
 
 
@@ -2334,6 +2351,14 @@ DISP_FWD_ATOL = 1e-3
 #: CPU copy of the model
 SEG_STEPS, SEG_BATCH, SEG_LR = 600, 2, 3e-3
 MIN_CAR_IOU, SEG_MIN_MASK_AGREE = 0.5, 0.999
+#: 17a-b train under torch.use_deterministic_algorithms: a second training
+#: from the same init over the first SEG_REPEAT_STEPS batches (17b; 17a
+#: repeats all DISP_STEPS) must give the same losses bit for bit
+SEG_REPEAT_STEPS = 50
+#: steps and inferences timed again outside deterministic mode, with the
+#: models' upsampling as the weight contractions and as F.interpolate (the
+#: port's earlier resize), in the same call
+INTERP_STEPS, INTERP_INFERENCES = 20, 20
 #: 17c: the sharded step at world size 1 against the unsharded one, both
 #: on the card: the losses (relative), and the parameters after the steps
 #: (Adam turns a gradient near 0 into a step of ~lr, so a flip of its sign
@@ -2401,6 +2426,64 @@ def dispnet_data(config, frames, device) -> dict:
                 valid=(depth > 0) & (disp <= config.stereo.max_disparity))
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms(True), cuDNN deterministic and
+    not benchmarking, for the block; the earlier settings afterwards."""
+    import torch
+
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            old[2:]
+
+
+@contextlib.contextmanager
+def interpolate_resize():
+    """The models' upsampling as ``F.interpolate(mode="bilinear")`` (the
+    port's earlier ``resize_bilinear``) for the block: only to time it
+    beside the weight contractions. Its CUDA backward accumulates with
+    atomics, so it runs outside ``deterministic()``."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from dynslam_tpu_torch.models import layers
+
+    def resize(x, size):
+        return F.interpolate(x, size=tuple(size), mode="bilinear",
+                             align_corners=False)
+
+    with mock.patch.object(layers, "resize_bilinear", resize):
+        yield
+
+
+def train(step, batches, steps: int):
+    """``steps`` calls of ``step`` on ``batches(it)``: (losses, ms each)."""
+    losses, ms = [], []
+    for it in range(steps):
+        loss, t = timed_ms(lambda: step(batches(it)))
+        losses.append(float(loss))
+        ms.append(t)
+    return losses, ms
+
+
+def first_difference(a, b) -> str:
+    """Where two loss lists part: the step and both values, or ''."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return f"step {i}: {x!r} vs {y!r}"
+    return "" if len(a) == len(b) else f"lengths {len(a)} vs {len(b)}"
+
+
 def seeded_dispnet(config, seed: int):
     from dynslam_tpu_torch.convert import flax_to_state_dict
     from dynslam_tpu_torch.models import dispnet
@@ -2414,7 +2497,9 @@ def seeded_dispnet(config, seed: int):
 def check_dispnet(config, frames, device) -> dict:
     """17a: a seeded Flax-layout param set converted to the module; its
     forward at the full frame on the card against a CPU copy, then
-    ``DISP_STEPS`` Adam steps on batches of two static frames."""
+    ``DISP_STEPS`` Adam steps on batches of two static frames, twice from
+    the same init (the losses equal bit for bit). Run it under
+    ``deterministic()``."""
     import copy
 
     import torch
@@ -2423,6 +2508,7 @@ def check_dispnet(config, frames, device) -> dict:
 
     model = seeded_dispnet(config, SEED)
     cpu = copy.deepcopy(model)
+    init = copy.deepcopy(model).to(device)
     model.to(device)
     data = dispnet_data(config, frames, device)
     left, right = data["left"][:1], data["right"][:1]
@@ -2434,16 +2520,23 @@ def check_dispnet(config, frames, device) -> dict:
             raise AssertionError(f"DispNet-lite on the card vs a CPU copy: "
                                  f"max |d disparity| {err} px (bound "
                                  f"{DISP_FWD_ATOL})")
-        infer_ms = median_ms(lambda: model(left, right), 20)
-    step = dispnet.make_train_step(
-        model, torch.optim.Adam(model.parameters(), lr=DISP_LR))
+        infer_ms = median_ms(lambda: model(left, right), INTERP_INFERENCES)
     n = data["left"].shape[0]
-    losses, ms = [], []
-    for it in range(DISP_STEPS):
+
+    def batches(it):
         idx = [(it + 3 * j) % n for j in range(DISP_BATCH)]
-        loss, t = timed_ms(lambda: step({k: v[idx] for k, v in data.items()}))
-        losses.append(float(loss))
-        ms.append(t)
+        return {k: v[idx] for k, v in data.items()}
+
+    def run(m, steps):
+        return train(dispnet.make_train_step(
+            m, torch.optim.Adam(m.parameters(), lr=DISP_LR)), batches, steps)
+
+    losses, ms = run(model, DISP_STEPS)
+    repeat, _ = run(copy.deepcopy(init), DISP_STEPS)
+    if repeat != losses:
+        raise AssertionError(f"DispNet-lite's training repeated from the same "
+                             f"init under deterministic algorithms parts at "
+                             f"{first_difference(losses, repeat)}")
     fall = statistics.mean(losses[-5:]) / losses[0]
     if not all(map(math.isfinite, losses)) or not fall < DISP_MAX_LOSS_FALL:
         raise AssertionError(f"DispNet-lite training: losses {losses}, the "
@@ -2451,14 +2544,21 @@ def check_dispnet(config, frames, device) -> dict:
                              f"{DISP_MAX_LOSS_FALL})")
     return dict(err=err, infer_ms=infer_ms, step_ms=statistics.median(ms[3:]),
                 losses=losses, fall=fall,
-                valid=float(data["valid"].float().mean()))
+                valid=float(data["valid"].float().mean()), model=init,
+                left=left, right=right, batches=batches)
 
 
 def check_segnet(frames, device, out_dir: Path) -> dict:
     """17b: SegNet-lite trained on the card against the dynamic frames' car
-    masks, the learned provider on the held-out last frame (a detected
-    car, the same detections from a CPU copy, ms a frame), and a
-    ``save_params``/``load_params`` round trip."""
+    masks, and again from the same init over the first
+    ``SEG_REPEAT_STEPS`` batches (the losses equal bit for bit); the
+    learned provider on the held-out last frame (a detected car, the same
+    detections from a CPU copy, ms a frame), and a
+    ``save_params``/``load_params`` round trip. The init goes to
+    ``out_dir/segnet_init.msgpack`` (torch's generator draws it, so it
+    depends on the torch version; ``tests/torch_train_curves.py --init``
+    trains both packages from it on the CPU). Run it under
+    ``deterministic()``."""
     import copy
 
     import numpy as np
@@ -2468,22 +2568,33 @@ def check_segnet(frames, device, out_dir: Path) -> dict:
 
     model = segnet.init_params(segnet.create_model(),
                                torch.Generator().manual_seed(SEED))
+    segnet.save_params(str(out_dir / "segnet_init.msgpack"), model)
     model.to(device)
+    init = copy.deepcopy(model)
     rgb = gray_rgb(frames["left"], device)
     cars = torch.tensor(frames["objid"] > 0, device=device)
     n = rgb.shape[0] - 1  # the last frame is held out
-    step = segnet.make_train_step(
-        model, torch.optim.Adam(model.parameters(), lr=SEG_LR))
-    losses, ms = [], []
-    for it in range(SEG_STEPS):
+
+    def batches(it):
         idx = [(it + 5 * j) % n for j in range(SEG_BATCH)]
-        loss, t = timed_ms(lambda: step(dict(rgb=rgb[idx], mask=cars[idx])))
-        losses.append(float(loss))
-        ms.append(t)
+        return dict(rgb=rgb[idx], mask=cars[idx])
+
+    def run(m, steps):
+        return train(segnet.make_train_step(
+            m, torch.optim.Adam(m.parameters(), lr=SEG_LR)), batches, steps)
+
+    losses, ms = run(model, SEG_STEPS)
+    repeat, _ = run(copy.deepcopy(init), SEG_REPEAT_STEPS)
+    if repeat != losses[:SEG_REPEAT_STEPS]:
+        raise AssertionError(
+            f"SegNet-lite's training repeated from the same init under "
+            f"deterministic algorithms parts at "
+            f"{first_difference(losses, repeat)}")
     first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
     if not all(map(math.isfinite, losses)) or not last < first:
-        raise AssertionError(f"SegNet-lite training: losses {losses[:10]} ... "
-                             f"{losses[-10:]}")
+        raise AssertionError(f"SegNet-lite training: the first 10 losses' "
+                             f"mean {first}, the last 10's {last} (need "
+                             f"less): {losses[:10]} ... {losses[-10:]}")
     frame = np.repeat(frames["left"][n][..., None], 3, -1)
     truth = frames["objid"][n]
     prov = segnet.LearnedSegmentationProvider(model,
@@ -2522,9 +2633,53 @@ def check_segnet(frames, device, out_dir: Path) -> dict:
         if not torch.equal(back.state_dict()[k], v.cpu()):
             raise AssertionError(f"save_params/load_params: {k} differs")
     return dict(step_ms=statistics.median(ms[3:]), losses=losses,
+                first=first, last=last, model=init, batches=batches,
+                size=tuple(rgb.shape[-2:]),
                 frame_ms=statistics.median(frame_ms), held_out=n,
                 detections=len(res.instance_detections), found=found,
                 boxes=boxes[0], agree=agree, bytes=path.stat().st_size)
+
+
+def time_resizes(dn, sn) -> dict:
+    """17a-b's inference and training steps again outside
+    ``deterministic()``, from the seeded inits, with the upsampling as the
+    weight contractions (``contract``) and as ``F.interpolate``
+    (``interp``, ``interpolate_resize``): per variant the ms of one
+    DispNet-lite inference, of a DispNet-lite and of a SegNet-lite step
+    (medians past 3 warm-up steps), and of SegNet-lite's last upsampling
+    alone, forward and input gradient (``resize_ms``: its 24 channels at
+    batch 2, from the half frame to the frame)."""
+    import copy
+
+    import torch
+
+    from dynslam_tpu_torch.models import dispnet, layers, segnet
+
+    h, w = sn["size"]
+    gen = torch.Generator(device=dn["left"].device).manual_seed(SEED)
+    x = torch.rand(SEG_BATCH, 24, -(-h // 2), -(-w // 2), generator=gen,
+                   device=gen.device, requires_grad=True)
+    g = torch.rand(SEG_BATCH, 24, h, w, generator=gen, device=gen.device)
+    out = {}
+    for name, ctx in (("contract", contextlib.nullcontext),
+                      ("interp", interpolate_resize)):
+        t = out[name] = {}
+        with ctx():
+            t["resize_ms"] = median_ms(lambda: torch.autograd.grad(
+                layers.resize_bilinear(x, (h, w)), x, g), INTERP_INFERENCES)
+        with ctx(), torch.no_grad():
+            m = dn["model"]
+            t["infer_ms"] = median_ms(lambda: m(dn["left"], dn["right"]),
+                                      INTERP_INFERENCES)
+        for key, mod, lr, d in (("disp_step_ms", dispnet, DISP_LR, dn),
+                                ("seg_step_ms", segnet, SEG_LR, sn)):
+            m = copy.deepcopy(d["model"])
+            with ctx():
+                _, ms = train(mod.make_train_step(
+                    m, torch.optim.Adam(m.parameters(), lr=lr)),
+                    d["batches"], INTERP_STEPS)
+            t[key] = statistics.median(ms[3:])
+    return out
 
 
 def check_sharding(config, frames, device) -> dict:
@@ -2690,7 +2845,11 @@ def run_phase17(config, dconfig, frames, dyn_frames, device, flush,
     from dynslam_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    dn = check_dispnet(config, frames, device)
+    with deterministic():
+        dn = check_dispnet(config, frames, device)
+        sn = check_segnet(dyn_frames, device, cuda_build.BUILD_DIR)
+    say("dispnet", "17a and 17b trained under torch.use_deterministic_"
+                   "algorithms(True), cuDNN deterministic, not benchmarking")
     say("dispnet", f"DispNet-lite (widths 32, 64, 96, 128; max disparity "
                    f"{config.stereo.max_disparity}) from a seeded Flax-layout "
                    f"param set, {W}x{H}: the card vs a CPU copy (TF32 off) "
@@ -2701,13 +2860,17 @@ def run_phase17(config, dconfig, frames, dyn_frames, device, flush,
                    f"{dn['step_ms']:.3f} ms a step (median); loss "
                    f"{dn['losses'][0]:.3f} -> {dn['losses'][-1]:.3f} px, the "
                    f"last 5 at {dn['fall']:.3f} of the first (need < "
-                   f"{DISP_MAX_LOSS_FALL})")
-    sn = check_segnet(dyn_frames, device, cuda_build.BUILD_DIR)
+                   f"{DISP_MAX_LOSS_FALL}); a second training from the same "
+                   f"init gave the same {DISP_STEPS} losses bit for bit")
     say("segnet", f"SegNet-lite (widths 24, 48, 96) trained {SEG_STEPS} Adam "
                   f"steps (lr {SEG_LR}, batch {SEG_BATCH}) on dynamic frames "
                   f"0-{sn['held_out'] - 1}: {sn['step_ms']:.3f} ms a step "
                   f"(median), loss {sn['losses'][0]:.4f} -> "
-                  f"{sn['losses'][-1]:.4f}; on held-out frame "
+                  f"{sn['losses'][-1]:.4f}, the first 10's mean "
+                  f"{sn['first']:.4f}, the last 10's {sn['last']:.4f} (need "
+                  f"less); a second training from the same init gave the "
+                  f"same first {SEG_REPEAT_STEPS} losses bit for bit; on "
+                  f"held-out frame "
                   f"{sn['held_out']} the provider gives "
                   f"{sn['detections']} detections in {sn['frame_ms']:.2f} ms "
                   f"a frame, (truth covered, IoU) of the cars they hit "
@@ -2715,6 +2878,24 @@ def run_phase17(config, dconfig, frames, dyn_frames, device, flush,
                   f"(need one IoU > {MIN_CAR_IOU}); a CPU copy gives "
                   f"the same boxes {sn['boxes']}, masks {sn['agree']:.5f} "
                   f"equal; params file {sn['bytes']} bytes round-trips")
+    rt = time_resizes(dn, sn)
+    c, i = rt["contract"], rt["interp"]
+    say("resize", f"outside deterministic mode, the upsampling as weight "
+                  f"contractions (resize_bilinear) vs F.interpolate: "
+                  f"DispNet-lite inference {c['infer_ms']:.3f} vs "
+                  f"{i['infer_ms']:.3f} ms, its step {c['disp_step_ms']:.3f} "
+                  f"vs {i['disp_step_ms']:.3f} ms, SegNet-lite's step "
+                  f"{c['seg_step_ms']:.3f} vs {i['seg_step_ms']:.3f} ms "
+                  f"(medians over {INTERP_STEPS} steps; deterministic, "
+                  f"above: {dn['step_ms']:.3f} and {sn['step_ms']:.3f} ms); "
+                  f"SegNet-lite's last upsampling alone, forward and input "
+                  f"gradient, {c['resize_ms']:.3f} vs {i['resize_ms']:.3f} "
+                  "ms")
+    path = cuda_build.BUILD_DIR / "phase17_losses.json"
+    path.write_text(json.dumps(dict(dispnet=dn["losses"],
+                                    segnet=sn["losses"])))
+    say("losses", f"17a-b's losses, step by step, in {path}; 17b's init in "
+                  f"{cuda_build.BUILD_DIR / 'segnet_init.msgpack'}")
     sh = check_sharding(config, frames, device)
     say("sharding", f"sharded step on a (data 1, model 1) mesh over "
                     f"{sh['backend']} vs the unsharded step, {SHARD_STEPS} "
@@ -3544,7 +3725,7 @@ def split_census(census: Counter, reference: Counter, what: str) -> dict:
     from dynslam_tpu_torch import device
     from dynslam_tpu_torch.pipeline import fused
 
-    first_use = source_site(device._constant, "torch.tensor(")
+    first_use = source_site(device.constant, "= torch.tensor(")
     upload = source_site(fused._to_device, "x.to(")
     cli = Counter({k: v for k, v in census.items()
                    if k.startswith("dynslam_tpu_torch/main.py:")})
@@ -4055,10 +4236,11 @@ def run_phase20(base, sdir: Path, config, dconfig, frames, dyn_frames, device,
 # ---------------------------------------------------------------------------
 
 #: phase 21: the frames of each bench mode (bench.py's 40 cut to a prefix
-#: of its sequences, to keep the whole script near 15 minutes cold: the
-#: 40 frames' renders alone would add ~4 minutes) and a mode's time limit
-#: (s)
-BENCH_FRAMES = 20
+#: of its sequences, the 12 phase 8 takes, to keep the whole script well
+#: inside its 20 minutes cold on a slow host: each KITTI-size render costs
+#: ~16 s of a core, and at 20 frames the script has taken up to 1219.8 s
+#: on an H100 machine with slow host cores) and a mode's time limit (s)
+BENCH_FRAMES = 12
 BENCH_MODE_TIMEOUT = 240
 #: an eval-on mode's frame rate against its eval-off mode's, at least: a
 #: sanity floor (evaluation adds device work but never halves the rate),
@@ -4123,7 +4305,7 @@ def bench_in_process(roots, frames, device, reference: Counter, flush,
     finally:
         builder.build_fused = build
         fused_dynamic.integrate_many = recorder.fn
-    first_use = source_site(device_mod._constant, "torch.tensor(")
+    first_use = source_site(device_mod.constant, "= torch.tensor(")
     own = got["own"] - Counter({first_use: got["own"][first_use]})
     ref = reference - Counter({first_use: reference[first_use]})
     if own - ref or got["other"]:
@@ -4293,6 +4475,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
+    def clock(phase: int) -> None:
+        say("clock", f"phase {phase} starts at "
+                     f"{time.perf_counter() - t_start:.1f} s")
+
     # 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4345,6 +4531,7 @@ def main(argv=None) -> int:
                   f"{len(d_set.poses)} renders) and {VO_FRAMES} vo_drift "
                   f"frames {VO_W}x{VO_H} in {time.perf_counter() - t0:.1f} s")
 
+    clock(3)
     # 3. K1 vs plain
     scene = map_scene(cfg, frames, device)
     k1 = check_integrate(cfg, scene, flush, parent)
@@ -4355,6 +4542,7 @@ def main(argv=None) -> int:
               f", |dw| {k1['dw']} q, |dcolor| {k1['dcolor']}")
     say("K1", timing_text(k1))
 
+    clock(4)
     # 4. the pre-pass and K2 vs plain
     k2 = check_raycast(cfg, scene, flush, parent)
     pre = k2["pre"]
@@ -4371,6 +4559,7 @@ def main(argv=None) -> int:
               f"{k2['ref_samples']}); {reads_text(k2['reads'])}")
     say("K2", timing_text(k2))
 
+    clock(5)
     # 5. slice
     say("slice", f"build_fused_static, bench config with min_decay_age "
                  f"{MIN_DECAY_AGE} (bench: 200), the only change; "
@@ -4392,6 +4581,7 @@ def main(argv=None) -> int:
                  f"syncs in frame {CENSUS_FRAME}: {sum(census.values())} "
                  f"{dict(census.most_common())}")
 
+    clock(6)
     # 6. where the time goes
     lgs, rgs, rgbs = res["frames"]
     prof = profile_frames(
@@ -4408,6 +4598,7 @@ def main(argv=None) -> int:
                    f"{RAYCAST_STAGE_MAX_LAUNCHES} in all)")
     del res, scene
 
+    clock(8)
     # 8. the dynamic slice (its routed fusions feed phase 7)
     dconfig = bench_config(True, min_decay_age=MIN_DECAY_AGE)
     say("dyn", f"build_fused_dynamic, bench dynamic config (K "
@@ -4442,6 +4633,7 @@ def main(argv=None) -> int:
     say("dyn", f"raycast stage {rc_kernels:.0f} launches and "
                f"{rc_memsets:.0f} memsets a frame")
 
+    clock(7)
     # 7. K1's volume axis vs plain, on phase 8's largest routed fusion
     k1v = check_integrate_many(dres["recorder"].best, flush, parent)
     say("K1-vol", f"integrate_many over {len(k1v['vols'])} object volumes "
@@ -4454,6 +4646,7 @@ def main(argv=None) -> int:
                   f"{k1v['dcolor']}")
     say("K1-vol", timing_text(k1v))
 
+    clock(9)
     # 9. the pre-pass and K2 on one object volume vs plain
     k2o = check_instance_raycast(pipe, dyn["track"], dyn_frames, flush,
                                  parent)
@@ -4477,6 +4670,7 @@ def main(argv=None) -> int:
                   f"{reads_text(k2o['reads'])}")
     say("K2-obj", timing_text(k2o))
 
+    clock(10)
     # 10. the static slice with evaluation on
     eval_dir = cuda_build.BUILD_DIR / "smoke_eval"
     pts = write_lidar(config, frames, eval_dir / "static")
@@ -4522,6 +4716,7 @@ def main(argv=None) -> int:
                 f"copies; the eval's device time "
                 f"{cost['device_ms']:.4f} ms on {cost['points']} points")
 
+    clock(11)
     # 11. the dynamic slice with evaluation on
     dpts = write_lidar(dconfig, dyn_frames, eval_dir / "dynamic")
     say("dyn-eval", f"build_fused_dynamic as in phase 8 with FusedEvaluation "
@@ -4573,6 +4768,7 @@ def main(argv=None) -> int:
                     f"{statistics.median(djob_ms):.2f}, max "
                     f"{max(djob_ms):.2f} ({len(djob_ms)} jobs)")
 
+    clock(12)
     # 12. the pre-pass and K2 in the crop viewport vs plain
     k2c = check_crop_raycast(dpipe, deres["crops"], flush, parent)
     cpre = k2c["pre"]
@@ -4598,6 +4794,7 @@ def main(argv=None) -> int:
                    f"{reads_text(k2c['reads'])}")
     say("K2-crop", timing_text(k2c))
 
+    clock(13)
     # 13. the staged dynamic slice through the CLI
     sdir = cuda_build.BUILD_DIR / "smoke_staged"
     seq, out = sdir / "seq", sdir / "out"
@@ -4659,6 +4856,7 @@ def main(argv=None) -> int:
                   f"{spl['blocks'][1]} vs {spl['blocks'][0]} continuous "
                   f"(need within {SPLIT_BLOCKS_RTOL:.0%})")
 
+    clock(14)
     # 14. K1 on the pool flush vs plain
     k1p = check_integrate_many(st.recorder.best, flush, parent)
     say("K1-pool", f"pool flush over {len(k1p['vols'])} object volumes "
@@ -4671,6 +4869,7 @@ def main(argv=None) -> int:
                    f"{k1p['dcolor']}")
     say("K1-pool", timing_text(k1p))
 
+    clock(15)
     # 15. K2 at a free pose and on a pool slot vs plain
     eng = st.dyn.static_scene
     k2f = check_view_raycast(eng.cfg, eng.state, free_pose(eng.cam_to_world),
@@ -4707,28 +4906,34 @@ def main(argv=None) -> int:
                    f"{reads_text(k2s['reads'])}")
     say("K2-slot", timing_text(k2s))
 
+    clock(16)
     # 16. the CLI's last outputs
     pre16, rb, overlay, rr = run_phase16(base, sdir, split, dyn_frames, dyn,
                                          k2f)
 
+    clock(17)
     # 17. the learned models, sharding, and batch evaluation
     p17 = run_phase17(config, dconfig, frames, dyn_frames, device, flush,
                       parent)
 
+    clock(18)
     # 18. the native readers, the soaks, the oversize fallback, the VO
     # gauge and the dynamic step's profile
     p18 = run_phase18(base, sdir, dyn_frames, s_loop, d_loop, vo_seq,
                       device, flush)
 
+    clock(19)
     # 19. the staged CLI's depth-input and odometry options
     p19 = run_phase19(base, sdir, dconfig, dyn_frames, flush, parent)
 
+    clock(20)
     # 20. the fused CLI and the KITTI tracking layout
     p20 = run_phase20(base, sdir, config, dconfig, frames, dyn_frames, device,
                       flush, parent, dict(
         census=census, fps=sl["fps"], dcensus=dcensus, dfps=dyn["fps"],
         staged_out=out))
 
+    clock(21)
     # 21. the port's bench
     from dynslam_tpu_torch import bench
 

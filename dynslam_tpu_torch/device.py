@@ -7,8 +7,7 @@ when the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-import functools
-from typing import Union
+from typing import Dict, Union
 
 import numpy as np
 import torch
@@ -16,10 +15,9 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
-@functools.cache
-def _constant(values: tuple, dtype: torch.dtype,
-              device: torch.device) -> torch.Tensor:
-    return torch.tensor(values, dtype=dtype, device=device)
+#: ``constant``'s tensors by (values, dtype, device): a test can check that
+#: none was written into (``Tensor._version`` counts in-place writes)
+CONSTANTS: Dict[tuple, torch.Tensor] = {}
 
 
 def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
@@ -30,7 +28,12 @@ def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
     def freeze(v):
         return tuple(freeze(x) for x in v) if isinstance(v, (list, tuple)) \
             else v
-    return _constant(freeze(values), dtype, torch.device(device))
+    key = (freeze(values), dtype, torch.device(device))
+    t = CONSTANTS.get(key)
+    if t is None:
+        t = CONSTANTS[key] = torch.tensor(key[0], dtype=dtype,
+                                          device=key[2])
+    return t
 
 
 def upload(array, device) -> torch.Tensor:

@@ -12,6 +12,10 @@ the order Flax creates them, so ``convs.<i>`` is Flax's ``Conv_<i>``
   even: XLA pads (0, 1), not (1, 1). ``nn.Conv2d(padding=1)`` would shift
   every strided output by half a pixel, so ``SameConv2d`` pads with
   ``F.pad`` and convolves with ``padding=0``.
+- ``jax.image.resize`` is no gather: it contracts the input with one
+  weight matrix per resized axis (``resize_bilinear``). So is the port's,
+  which makes its backward a matmul too, with no atomics: deterministic on
+  the card.
 - ``dtype``: the convolutions and resizes compute in it (parameters stay
   float32 and are cast per call, as Flax's ``dtype``/``param_dtype`` do).
 """
@@ -19,8 +23,9 @@ the order Flax creates them, so ``convs.<i>`` is Flax's ``Conv_<i>``
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -59,12 +64,73 @@ def conv_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), stride)
 
 
+def _triangle_weights(n_in: int, n_out: int) -> np.ndarray:
+    """``jax._src.image.scale.compute_weight_mat`` for the triangle kernel,
+    antialias off: (n_out, n_in) float32. Sample centres are half-pixel,
+    ``(o + 0.5) * (n_in / n_out) - 0.5`` with the product and the
+    subtraction rounded once, as XLA's CPU code fuses them into one FMA
+    (taken in float64, where the product of two float32s is exact); taps
+    out of range are dropped and the rest renormalised; an output whose
+    sample lies outside ``[-0.5, n_in - 0.5]`` gets no weight."""
+    inv = np.float32(1.0 / (n_out / n_in))
+    centre = np.arange(n_out, dtype=np.float32) + np.float32(0.5)
+    sample = (centre.astype(np.float64) * float(inv) - 0.5).astype(np.float32)
+    dist = np.abs(sample[None] - np.arange(n_in, dtype=np.float32)[:, None])
+    w = np.maximum(np.float32(0), np.float32(1) - dist)
+    total = w.sum(0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, np.float32(1)),
+                 np.float32(0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.ascontiguousarray(np.where(inside[None], w, np.float32(0)).T,
+                                np.float32)
+
+
+#: ``_weights``' matrices by (n_in, n_out, dtype, device), as
+#: ``device.CONSTANTS`` keeps its constants
+WEIGHTS: Dict[tuple, torch.Tensor] = {}
+
+
+def _weights(n_in: int, n_out: int, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """``_triangle_weights`` on ``device`` in ``dtype``, made once per
+    process and shared: callers must not write into it."""
+    key = (n_in, n_out, dtype, device)
+    w = WEIGHTS.get(key)
+    if w is None:
+        w = WEIGHTS[key] = torch.tensor(_triangle_weights(n_in, n_out),
+                                        dtype=dtype, device=device)
+    return w
+
+
+def width_first(h_in: int, w_in: int, h_out: int, w_out: int) -> bool:
+    """Whether ``jnp.einsum`` contracts the width axis first: its path
+    takes the order of fewer operations, ``h_in * w_out * (w_in + h_out)``
+    against ``w_in * h_out * (h_in + w_out)`` (the batch and channels
+    scale both alike)."""
+    return h_in * w_out * (w_in + h_out) <= w_in * h_out * (h_in + w_out)
+
+
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
-    """``jax.image.resize(..., "bilinear")`` where it upsamples: half-pixel
-    centres, edge samples clamped (JAX renormalises the in-bounds
-    weights, which gives the same values)."""
-    return F.interpolate(x, size=tuple(size), mode="bilinear",
-                         align_corners=False, antialias=False)
+    """``jax.image.resize(..., "bilinear")`` of NCHW ``x`` to ``size`` (H,
+    W), antialias off (the models only upsample, where antialiasing does
+    nothing): as ``jax._src.image.scale._scale_and_translate``, the input
+    contracted with one weight matrix per resized axis (``_weights``), in
+    the order ``jnp.einsum`` takes (``width_first``). An axis whose size
+    stays is left alone, as JAX skips it."""
+    (h_in, w_in), (h_out, w_out) = x.shape[-2:], tuple(size)
+
+    def along_w(t):
+        return t if w_in == w_out else \
+            t @ _weights(w_in, w_out, t.dtype, t.device).mT
+
+    def along_h(t):
+        return t if h_in == h_out else \
+            _weights(h_in, h_out, t.dtype, t.device) @ t
+
+    if width_first(h_in, w_in, h_out, w_out):
+        return along_h(along_w(x))
+    return along_w(along_h(x))
 
 
 def encoder_decoder_convs(in_channels: int, features: Sequence[int]):

@@ -28,12 +28,12 @@ from dynslam_tpu_torch.pipeline.builder import (
 from test_dynamic_pipeline import dynamic_config
 from test_torch_eval import to_port
 from test_torch_eval_slice import (
-    SubmitLog, _rows, check_renders, check_witness, compare_csv_dirs,
-    render_flips, unified,
+    SliceRun, SubmitLog, _rows, check_fill, check_renders, check_witness,
+    compare_csv_dirs, render_flips, unified,
 )
 from torch_frontend_inputs import (
-    RENDER_CAND_K, jax_dynamic_sampler, jax_fused_evaluation,
-    jax_kernel_renders, write_eval_sequence,
+    jax_dynamic_sampler, jax_fused_evaluation, jax_kernel_renders,
+    write_eval_sequence,
 )
 from torch_threads import threads
 
@@ -84,18 +84,18 @@ class StashLog:
         return out
 
 
-def run_lag(tmp_path_factory, lag):
+def run_lag(tmp_path_factory, lag) -> SliceRun:
     """Both pipelines over the frames at dispatch lag ``lag``, then
-    finalize and close: (JAX CSV dir, port CSV dir, port pipeline, stash
-    logs (JAX, port), ``render_flips``)."""
+    finalize and close (``stash``: the stash logs, JAX and port)."""
     with pytest.MonkeyPatch.context() as mp:
         fill = jax_kernel_renders(mp)
         out = _run_lag(tmp_path_factory, lag)
-    assert fill and max(fill) < RENDER_CAND_K
+    # a copy: the next run in this process empties the shared list
+    out.fill = list(fill)
     return out
 
 
-def _run_lag(tmp_path_factory, lag):
+def _run_lag(tmp_path_factory, lag) -> SliceRun:
     root = str(tmp_path_factory.mktemp(f"evaldyn{lag}") / "seq")
     frames = write_eval_sequence(root, CFG, N_FRAMES, dynamic=True)
     jdir, tdir = (str(tmp_path_factory.mktemp(f"{k}{lag}"))
@@ -119,24 +119,34 @@ def _run_lag(tmp_path_factory, lag):
     for pipe in (jp, tp):
         pipe.finalize()
         pipe.evaluation.close()
-    check_renders(*renders)
-    check_renders(*renders, region=ASSOC_DYNAMIC)
-    check_witness(jp.evaluation, *renders, tdir)
-    return jdir, tdir, tp, logs, render_flips(*renders, tp.evaluation)
+    return SliceRun(jdir, tdir, tp, jp.evaluation, renders, [],
+                    render_flips(*renders, tp.evaluation), logs)
 
 
-def check_dynamic_run(run):
+#: the regions ``check_renders`` compares: the frame, and the pixels the
+#: association map gives the dynamic objects
+REGIONS = [None, ASSOC_DYNAMIC]
+REGION_IDS = ["frame", "dynamic"]
+
+
+def check_dynamic_run(run: SliceRun):
     """The CSVs against JAX's, every dispatched frame evaluated, crop
     renders, a dynamic bucket with fused hits, and the boundary case."""
-    jdir, tdir, tp, (jlog, tlog), flips = run
-    compare_csv_dirs(jdir, tdir, flips)
-    assert tlog.poses.keys() == jlog.poses.keys()
+    tdir, tp, (jlog, tlog) = run.tdir, run.tp, run.stash
+    compare_csv_dirs(run.jdir, tdir, run.flips)
+    assert tlog.poses.keys() == jlog.poses.keys(), (
+        sorted(tlog.poses), sorted(jlog.poses))
     for f, poses in tlog.poses.items():
-        assert poses.shape == jlog.poses[f].shape, f
-        assert np.abs(poses - jlog.poses[f]).max(initial=0) <= MAX_POSE_GAP
+        assert poses.shape == jlog.poses[f].shape, (
+            f, poses.shape, jlog.poses[f].shape)
+        gap = float(np.abs(poses - jlog.poses[f]).max(initial=0))
+        assert gap <= MAX_POSE_GAP, (
+            f"frame {f}: the car's render poses part by {gap} (bound "
+            f"{MAX_POSE_GAP})")
     # lag 1 and 2 evaluate the same frames: every dispatched one
-    assert sorted(unified(tdir)) == list(range(1, N_FRAMES))
-    assert tp.eval_crop_renders > 0
+    assert sorted(unified(tdir)) == list(range(1, N_FRAMES)), sorted(
+        unified(tdir))
+    assert tp.eval_crop_renders > 0, tp.eval_crop_renders
     (name,) = [n for n in os.listdir(tdir)
                if n.endswith("-dynamic-depth-result.csv")]
     rows = {int(r["frame"]): r
@@ -149,13 +159,27 @@ def check_dynamic_run(run):
     # evaluated frame in both packages, and that frame's points already
     # go to the dynamic bucket (its totals equal JAX's: compare_csv_dirs)
     first = [f for f, s in tlog.states.items() if "Dynamic" in s.values()]
-    assert tlog.states == jlog.states
-    assert first and int(rows[min(first)]["input-total-3.00"]) > 0
+    assert tlog.states == jlog.states, (tlog.states, jlog.states)
+    assert first and int(rows[min(first)]["input-total-3.00"]) > 0, (
+        first, tlog.states)
 
 
 @pytest.fixture(scope="module")
-def lag1(tmp_path_factory):
+def lag1(tmp_path_factory) -> SliceRun:
     return run_lag(tmp_path_factory, 1)
+
+
+def test_dynamic_lag1_render_candidates_fit(lag1):
+    check_fill(lag1.fill)
+
+
+@pytest.mark.parametrize("region", REGIONS, ids=REGION_IDS)
+def test_dynamic_lag1_renders_agree(lag1, region):
+    check_renders(*lag1.renders, region=region)
+
+
+def test_dynamic_lag1_witness_rows(lag1):
+    check_witness(lag1.jax_eval, *lag1.renders, lag1.tdir)
 
 
 def test_dynamic_slice_lag1_csvs_match_jax(lag1):
@@ -167,7 +191,7 @@ def test_crop_viewport_equals_full_frame(lag1):
     shifted by the crop origin) equals the full-frame render on the
     crop's window (``raycast_ref``): the same rays, up to the rounding of
     the shifted principal point."""
-    tp = lag1[2]
+    tp = lag1.tp
     (t,) = [t for t in tp.tracker.active_tracks.values()
             if t.has_reconstruction()]
     k = len(t.frames) - 1

@@ -6,6 +6,7 @@ frames of the ``write_kitti_sequence`` scene at 160x120, each submitting
 every frame as ``main.run_fused`` does."""
 
 import csv
+import dataclasses
 import io
 import os
 
@@ -117,21 +118,58 @@ def render_flips(jax_log, port_log, evaluation):
     return out
 
 
-def check_renders(jax_log, port_log, region=None) -> None:
-    """The two packages' evaluated renders agree pixel by pixel, over the
-    frame or, with ``region`` set, over the pixels whose association code
-    is ``region``: hit agreement and the median depth gap where both hit
-    (measured: >= 0.9924 and <= 1.6 mm on every frame of the three
-    slices; a render 2% too deep or a crop merged at the wrong place parts
-    by far more)."""
+@dataclasses.dataclass
+class SliceRun:
+    """One run of both pipelines over a slice: the CSV directories, the
+    port's pipeline, the JAX package's evaluation, both submit logs (JAX,
+    port), each JAX render's largest per-tile candidate count, and
+    ``render_flips``; the dynamic slice adds its stash logs."""
+    jdir: str
+    tdir: str
+    tp: object
+    jax_eval: object
+    renders: tuple
+    fill: list
+    flips: dict
+    stash: tuple = ()
+
+
+def check_fill(fill) -> None:
+    """No JAX render's tile filled its ``RENDER_CAND_K`` candidates (a
+    full list may have dropped a block the port's render keeps)."""
+    assert fill, "no JAX render reported its candidate counts"
+    assert max(fill) < RENDER_CAND_K, (
+        f"a tile's candidate list reached {max(fill)} blocks, RENDER_CAND_K "
+        f"is {RENDER_CAND_K} (largest count of each render: {fill})")
+
+
+def render_agreement(jax_log, port_log, region=None) -> dict:
+    """{frame: (hit agreement, median depth gap m where both hit, or None
+    where they share no hit)} over the frame or, with ``region`` set, over
+    the pixels whose association code is ``region``."""
+    out = {}
     for n, (jr, _, _) in jax_log.frames.items():
         tr, _, assoc = port_log.frames[n]
         m = np.ones(jr.shape, bool) if region is None else assoc == region
         both = (jr > 0) & (tr > 0) & m
-        assert ((jr > 0) == (tr > 0))[m].mean() >= MIN_HIT_AGREE, (n, region)
-        if both.any():
-            assert np.median(np.abs(jr - tr)[both]) <= MAX_MEDIAN_GAP_M, (
-                n, region)
+        gap = float(np.median(np.abs(jr - tr)[both])) if both.any() else None
+        out[n] = (float(((jr > 0) == (tr > 0))[m].mean()), gap)
+    return out
+
+
+def check_renders(jax_log, port_log, region=None) -> None:
+    """The two packages' evaluated renders agree pixel by pixel
+    (``render_agreement``): hit agreement and the median depth gap where
+    both hit (measured: >= 0.9924 and <= 1.6 mm on every frame of the
+    three slices; a render 2% too deep or a crop merged at the wrong place
+    parts by far more)."""
+    got = render_agreement(jax_log, port_log, region)
+    bad = {n: v for n, v in got.items() if not (
+        v[0] >= MIN_HIT_AGREE and (v[1] is None or v[1] <= MAX_MEDIAN_GAP_M))}
+    assert not bad, (
+        f"region {region}: (hit agreement, median gap m) of the frames out "
+        f"of bounds {bad} (need >= {MIN_HIT_AGREE} and <= "
+        f"{MAX_MEDIAN_GAP_M}); every frame: {got}")
 
 
 def witness_rows(jax_eval, frame, counts) -> list:
@@ -163,14 +201,27 @@ def check_witness(jax_eval, jax_log, port_log, port_dir) -> None:
             if name.endswith(f"-{b}-depth-result.csv"):
                 for r in _rows(open(os.path.join(port_dir, name)).read()):
                     port[int(r["frame"]), bi] = r
-    assert port and port_log.frames.keys() == jax_log.frames.keys()
+    assert port, f"no depth CSVs in {port_dir}"
+    assert port_log.frames.keys() == jax_log.frames.keys(), (
+        f"evaluated frames: port {sorted(port_log.frames)}, JAX "
+        f"{sorted(jax_log.frames)}")
     for n, (_, jin, jassoc) in jax_log.frames.items():
         tr, _, tassoc = port_log.frames[n]
-        assert np.array_equal(tassoc, jassoc), n
+        assert np.array_equal(tassoc, jassoc), (
+            f"frame {n}: association maps differ at "
+            f"{int((tassoc != jassoc).sum())} pixels")
         counts = jax_eval.evaluate_depth(
             jax_eval.velodyne.read_frame(n), tr, jin, jassoc)
         for bi, want in enumerate(witness_rows(jax_eval, n, counts)):
-            assert port[n, bi] == want, (n, BUCKETS[bi])
+            got = port.get((n, bi))
+            assert got is not None, f"frame {n}, {BUCKETS[bi]}: no port row"
+            diff = [(k, got.get(k), v) for k, v in want.items()
+                    if got.get(k) != v]
+            diff += [(k, got[k], None) for k in got if k not in want]
+            assert not diff, (
+                f"frame {n}, {BUCKETS[bi]}: {len(diff)} fields differ, the "
+                f"first {diff[0][0]}: port {diff[0][1]}, witness "
+                f"{diff[0][2]}")
 
 
 def compare_csv_dirs(jax_dir, port_dir, flips) -> None:
@@ -183,8 +234,14 @@ def compare_csv_dirs(jax_dir, port_dir, flips) -> None:
         want = open(os.path.join(jax_dir, name)).read()
         got = open(os.path.join(port_dir, name)).read()
         assert got.splitlines()[0] == want.splitlines()[0], name
-        if not name.endswith("-depth-result.csv"):
-            assert got == want, name  # memory, tracker
+        if not name.endswith("-depth-result.csv"):  # memory, tracker
+            lines = list(zip(got.splitlines(), want.splitlines()))
+            first = next(((i, a, b) for i, (a, b) in enumerate(lines)
+                          if a != b), None)
+            assert got == want, (
+                f"{name}: line (index, port, JAX) {first}" if first else
+                f"{name}: {len(got.splitlines())} lines vs "
+                f"{len(want.splitlines())}")
             continue
         (bucket,) = [i for i, b in enumerate(BUCKETS)
                      if f"-{b}-depth" in name]
@@ -193,7 +250,9 @@ def compare_csv_dirs(jax_dir, port_dir, flips) -> None:
         for a, b in zip(jr, tr):
             slack = max(SLACK_N, SLACK_SHARE * int(a["input-total-0.50"]))
             flip = int(flips[int(a["frame"])][bucket])
-            assert flip <= slack, (name, a["frame"], flip)
+            assert flip <= slack, (
+                f"{name} frame {a['frame']}: {flip} points flip between "
+                f"the renders (slack {slack})")
             for col in a:
                 where = (name, a["frame"], col, a[col], b[col])
                 if col == "frame" or col.startswith(EXACT):
@@ -212,15 +271,16 @@ def unified(csv_dir):
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def run(tmp_path_factory) -> SliceRun:
     with pytest.MonkeyPatch.context() as mp:
         fill = jax_kernel_renders(mp)
         out = _run(tmp_path_factory)
-    assert fill and max(fill) < RENDER_CAND_K
+    # a copy: the next run in this process empties the shared list
+    out.fill = list(fill)
     return out
 
 
-def _run(tmp_path_factory):
+def _run(tmp_path_factory) -> SliceRun:
     root = str(tmp_path_factory.mktemp("evalstatic") / "seq")
     frames = write_eval_sequence(root, CFG, N_FRAMES, dynamic=False)
     jdir, tdir = (str(tmp_path_factory.mktemp(k)) for k in ("jax", "port"))
@@ -247,23 +307,36 @@ def _run(tmp_path_factory):
                                        o.used_blocks, o.decayed_blocks)
     jp.evaluation.close()
     tp.evaluation.close()
-    check_renders(*logs)
-    check_witness(jp.evaluation, *logs, tdir)
-    return jdir, tdir, tp, render_flips(*logs, tp.evaluation)
+    return SliceRun(jdir, tdir, tp, jp.evaluation, logs, [],
+                    render_flips(*logs, tp.evaluation))
+
+
+def test_static_render_candidates_fit(run):
+    check_fill(run.fill)
+
+
+def test_static_renders_agree(run):
+    check_renders(*run.renders)
+
+
+def test_static_witness_rows(run):
+    check_witness(run.jax_eval, *run.renders, run.tdir)
 
 
 def test_static_slice_csvs_match_jax(run):
-    jdir, tdir, tp, flips = run
-    compare_csv_dirs(jdir, tdir, flips)
+    tdir, tp = run.tdir, run.tp
+    compare_csv_dirs(run.jdir, tdir, run.flips)
     uni = unified(tdir)
-    assert sorted(uni) == list(range(1, N_FRAMES))
+    assert sorted(uni) == list(range(1, N_FRAMES)), sorted(uni)
     # the fused map is exact ground truth's render: most points correct at
     # the KITTI rule from the second fused frame on
     for f in range(2, N_FRAMES):
         r = uni[f]
         ok = int(r["fusion-total-3.00-kitti"]) \
             - int(r["fusion-missing-3.00-kitti"])
-        assert int(r["fusion-correct-3.00-kitti"]) >= 0.9 * ok > 0, f
+        assert int(r["fusion-correct-3.00-kitti"]) >= 0.9 * ok > 0, (
+            f"frame {f}: {r['fusion-correct-3.00-kitti']} correct of {ok} "
+            "points the render hits (need 90%)")
     assert tp.evaluation.failed_fetches == 0
-    assert len(tp.evaluation.job_ms) == N_FRAMES - 1
+    assert len(tp.evaluation.job_ms) == N_FRAMES - 1, tp.evaluation.job_ms
 

@@ -12,6 +12,17 @@ near 0 into a step of ~lr whose sign is the gradient's, so a sign flip
 costs up to 2 lr a step) and the median |difference| to lr / 100
 (measured 1e-6 at lr 1e-3). bf16: the port's bf16 forward within 0.05
 px of Flax's bf16 forward (measured 0.011) and of the float32 one.
+
+``resize_bilinear`` against ``jax.image.resize(..., "bilinear",
+antialias=False)`` at the decoders' shapes (1242x375, 64x96, 75x101) and
+one downsample, on inputs and cotangents in [0, 1): the forward to 1e-6
+absolute (measured 8.6e-7 at 38x51 -> 75x101, <= 4.2e-7 elsewhere), the
+gradient to 1e-6 of its largest value (up to ~4: an input feeds ~2
+outputs along each axis at a 2x upsampling; measured 1.9e-6 of 4.0 at
+38x51 -> 75x101, <= 9.5e-7 elsewhere). The gaps are XLA's: its CPU code
+rounds most sample centres ``(o + 0.5) * in / out - 0.5`` once (a fused
+multiply-add, as the port's weights do) but a few of them twice, and a
+centre one float32 ulp away moves its two weights by that ulp.
 """
 
 import jax
@@ -26,6 +37,7 @@ from dynslam_tpu.models import segnet as js
 from dynslam_tpu_torch import convert
 from dynslam_tpu_torch.models import dispnet as td
 from dynslam_tpu_torch.models import segnet as ts
+from dynslam_tpu_torch.models import layers
 from dynslam_tpu_torch.models.layers import same_pads
 from torch_threads import threads
 
@@ -36,6 +48,21 @@ FWD_ATOL = 1e-5
 LOSS_RTOL = 1e-4
 LR, STEPS = 1e-3, 3
 BF16_ATOL = 0.05
+RESIZE_FWD_ATOL, RESIZE_GRAD_RTOL = 1e-6, 1e-6
+
+#: (batch, channels, (H, W) in, (H, W) out): the decoders' resizes at
+#: 1242x375 (SegNet-lite's widths, DispNet-lite's first level), at 64x96
+#: and 75x101 (all four levels), and one downsample
+RESIZES = [
+    (1, 3, (24, 78), (47, 156)), (1, 3, (47, 156), (94, 311)),
+    (1, 3, (94, 311), (188, 621)), (1, 2, (188, 621), (375, 1242)),
+    (2, 4, (4, 6), (8, 12)), (2, 4, (8, 12), (16, 24)),
+    (2, 4, (16, 24), (32, 48)), (2, 4, (32, 48), (64, 96)),
+    (2, 4, (5, 7), (10, 13)), (2, 4, (10, 13), (19, 26)),
+    (2, 4, (19, 26), (38, 51)), (2, 4, (38, 51), (75, 101)),
+    (2, 4, (94, 311), (47, 156)),
+]
+RESIZE_IDS = [f"{a[0]}x{a[1]}-{b[0]}x{b[1]}" for _, _, a, b in RESIZES]
 
 
 def _nchw(x: np.ndarray) -> torch.Tensor:
@@ -224,3 +251,66 @@ def test_init_params_is_flax_initialiser(kind):
             assert float(w.std()) == pytest.approx(np.sqrt(1 / fan_in),
                                                    rel=0.05)
         assert not conv.bias.detach().any()
+
+
+def _jax_resize(x: np.ndarray, size):
+    """``jax.image.resize`` of NCHW ``x`` (NHWC inside, as the Flax models
+    call it) and its VJP."""
+    b, c = x.shape[:2]
+
+    def fn(v):
+        return jax.image.resize(v, (b, *size, c), "bilinear",
+                                antialias=False)
+
+    out, vjp = jax.vjp(fn, jnp.asarray(x.transpose(0, 2, 3, 1)))
+    return (np.asarray(out).transpose(0, 3, 1, 2),
+            lambda g: np.asarray(vjp(jnp.asarray(g.transpose(0, 2, 3, 1)))[0]
+                                 ).transpose(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("b,c,src,dst", RESIZES, ids=RESIZE_IDS)
+def test_resize_matches_jax(b, c, src, dst):
+    """Forward and gradient of ``resize_bilinear`` against JAX's."""
+    rng = np.random.default_rng(src[0] * 1000 + dst[1])
+    x = rng.random((b, c, *src), dtype=np.float32)
+    g = rng.random((b, c, *dst), dtype=np.float32)
+    want, vjp = _jax_resize(x, dst)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = layers.resize_bilinear(xt, dst)
+    (grad,) = torch.autograd.grad(got, xt, torch.from_numpy(g))
+    got, gwant = got.detach().numpy(), vjp(g)
+    assert got.shape == want.shape and got.dtype == np.float32
+    fwd_gap = float(np.abs(got - want).max())
+    grad_gap = float(np.abs(grad.numpy() - gwant).max())
+    grad_bound = RESIZE_GRAD_RTOL * float(np.abs(gwant).max())
+    assert fwd_gap <= RESIZE_FWD_ATOL and grad_gap <= grad_bound, (
+        f"forward max |d| {fwd_gap} (bound {RESIZE_FWD_ATOL}), gradient "
+        f"{grad_gap} (bound {grad_bound})")
+
+
+@pytest.mark.parametrize("b,c,src,dst", RESIZES, ids=RESIZE_IDS)
+def test_resize_contracts_in_einsums_order(b, c, src, dst):
+    """``width_first`` is the order of JAX's two contractions (its first
+    ``dot_general`` makes the width axis ``dst[1]`` long or the height
+    axis ``dst[0]``)."""
+    x = jax.ShapeDtypeStruct((b, *src, c), jnp.float32)
+    jaxpr = jax.make_jaxpr(lambda v: jax.image.resize(
+        v, (b, *dst, c), "bilinear", antialias=False))(x)
+    dots = [e for e in jaxpr.eqns[0].params["jaxpr"].eqns
+            if e.primitive.name == "dot_general"]
+    first = dots[0].outvars[0].aval.shape
+    assert first[0] in (dst[0], dst[1]) and dst[0] != dst[1]
+    assert layers.width_first(*src, *dst) == (first[0] == dst[1]), first
+
+
+def test_resize_weights_are_shared_and_frozen():
+    """One weight matrix per (in, out, dtype, device), made once; the
+    resize leaves it as it was and takes no gradient into it."""
+    x = torch.rand(1, 2, 5, 7, requires_grad=True)
+    layers.resize_bilinear(x, (10, 13)).sum().backward()
+    w = layers._weights(7, 13, torch.float32, torch.device("cpu"))
+    assert w is layers._weights(7, 13, torch.float32, torch.device("cpu"))
+    assert not w.requires_grad and w.grad is None
+    np.testing.assert_array_equal(w.numpy(), layers._triangle_weights(7, 13))
+    assert w.shape == (13, 7)
+    np.testing.assert_allclose(w.sum(1).numpy(), 1.0, rtol=1e-6)
