@@ -272,6 +272,23 @@ def _to_device(x, dtype, device, copy: bool) -> torch.Tensor:
     return x.to(device=device, dtype=dtype, copy=copy)
 
 
+def upload_frame(left_gray, right_gray, rgb, device):
+    """A frame's inputs on ``device``, in the ``fused_step.upload`` range:
+    float32 copies of the gray images (they become carry.prev_lg /
+    prev_rg, so a view would see the caller's later writes into its
+    buffers) and the RGB image, or the left gray one in three channels
+    where there is none. Returns (left, right, rgb)."""
+    with _stage("upload"):
+        lg = _to_device(left_gray, torch.float32, device, copy=True)
+        rg = _to_device(right_gray, torch.float32, device, copy=True)
+        if rgb is None:
+            rgb = torch.clamp(lg, 0, 255).to(torch.uint8)[..., None].expand(
+                *lg.shape, 3).contiguous()
+        else:
+            rgb = _to_device(rgb, torch.uint8, device, copy=False)
+    return lg, rg, rgb
+
+
 class FusedPipeline:
     """Host wrapper: frame 0 seeds features and the view (no fusion, as
     there is no VO delta yet); every later frame runs ``fused_step``."""
@@ -355,15 +372,7 @@ class FusedPipeline:
         self._frames += 1
         decay_on = self.decay_params.enabled and (
             self._frames >= int(self.decay_params.min_decay_age))
-        # COPY the gray images: they become carry.prev_lg / prev_rg, so a
-        # view would see the caller's later writes into its buffers
-        lg = _to_device(left_gray, torch.float32, self.device, copy=True)
-        rg = _to_device(right_gray, torch.float32, self.device, copy=True)
-        if rgb is None:
-            rgb = torch.clamp(lg, 0, 255).to(torch.uint8)[..., None].expand(
-                *lg.shape, 3).contiguous()
-        else:
-            rgb = _to_device(rgb, torch.uint8, self.device, copy=False)
+        lg, rg, rgb = upload_frame(left_gray, right_gray, rgb, self.device)
         if self.carry is None:
             self.carry = self._fresh_carry(lg, rg)
             return

@@ -56,7 +56,7 @@ from dynslam_tpu_torch.ops import tsdf
 from dynslam_tpu_torch.ops.integrate import integrate_many
 from dynslam_tpu_torch.ops.raycast import Raycast, raycast
 from dynslam_tpu_torch.pipeline.fused import (
-    Sampler, _to_device, front_end, static_map,
+    Sampler, front_end, static_map, upload_frame,
 )
 from dynslam_tpu_torch.utils import se3
 
@@ -711,13 +711,7 @@ class FusedDynamicPipeline:
         packing and upload."""
         detections = detections or []
         dev = self.device
-        lg = _to_device(left_gray, torch.float32, dev, copy=True)
-        rg = _to_device(right_gray, torch.float32, dev, copy=True)
-        if rgb is None:
-            rgb = torch.clamp(lg, 0, 255).to(torch.uint8)[..., None].expand(
-                *lg.shape, 3).contiguous()
-        else:
-            rgb = _to_device(rgb, torch.uint8, dev, copy=False)
+        lg, rg, rgb = upload_frame(left_gray, right_gray, rgb, dev)
 
         if self.carry is None:
             # frame 0: features only, no flow yet; its pose is identity
@@ -729,89 +723,90 @@ class FusedDynamicPipeline:
         if self.dispatch_lag == 1:
             self._finish_prev()
 
-        frame_no = self.current_frame_no
-        h, w = self.cfg.height, self.cfg.width
+        with _dyn_stage("associate"):
+            frame_no = self.current_frame_no
+            h, w = self.cfg.height, self.cfg.width
 
-        # associate this frame's detections (bbox/class only, Track.cpp:
-        # 17-71 needs no flow)
-        n_dyn = sum(1 for d in detections if d.is_possibly_dynamic())
-        dropped_now = max(0, n_dyn - self.K)
-        self._dropped_detections += dropped_now
-        if dropped_now:
-            print(f"[frame {frame_no}: {dropped_now} detections over the "
-                  f"{self.K} mask slots dropped (largest-first kept)]",
-                  file=sys.stderr)
-        cands = self.select_detections(detections, self.K)
-        new_frames = [
-            TrackFrame(frame_idx=frame_no, detection=det,
-                       masked_flow=np.zeros((0, 8), np.float32),
-                       camera_pose=self.pose_history[-1])
-            for det in cands
-        ]
-        self.tracker.process_instance_views(frame_no, new_frames)
+            # associate this frame's detections (bbox/class only, Track.cpp:
+            # 17-71 needs no flow)
+            n_dyn = sum(1 for d in detections if d.is_possibly_dynamic())
+            dropped_now = max(0, n_dyn - self.K)
+            self._dropped_detections += dropped_now
+            if dropped_now:
+                print(f"[frame {frame_no}: {dropped_now} detections over the "
+                      f"{self.K} mask slots dropped (largest-first kept)]",
+                      file=sys.stderr)
+            cands = self.select_detections(detections, self.K)
+            new_frames = [
+                TrackFrame(frame_idx=frame_no, detection=det,
+                           masked_flow=np.zeros((0, 8), np.float32),
+                           camera_pose=self.pose_history[-1])
+                for det in cands
+            ]
+            self.tracker.process_instance_views(frame_no, new_frames)
 
-        # per-slot actions from the current (frame k-1-updated) states
-        assoc = []
-        pending_j: Dict[int, int] = {}
-        copy_bbox = np.zeros((self.K, 4), np.float32)
-        mask_gate = np.zeros(self.K, bool)
-        warm_tr = np.zeros((self.K, 6), np.float32)
-        action = np.zeros(self.K, np.int32)
-        #: copy-mask pixels the fusion crop would lose, per slot
-        trunc_px = np.zeros(self.K, np.int64)
-        always = self.config.always_reconstruct_objects
-        for j, tf in enumerate(new_frames):
-            track = self._track_of_frame(tf)
-            det = tf.detection
-            assoc.append((j, track, tf, len(track.frames) - 1))
-            bb = det.copy_mask.bbox
-            copy_bbox[j] = (bb.x0, bb.y0, bb.x1, bb.y1)
-            mask_gate[j] = True
-            # warm start from the latest frame with a known twist (at lag
-            # 2 the immediately-previous frame's update is pending)
-            for f in reversed(track.frames[:-1]):
-                if f.relative_pose_tr is not None:
-                    warm_tr[j] = f.relative_pose_tr
-                    break
-            if track.state == TrackState.UNCERTAIN \
-                    or track.state == TrackState.DYNAMIC or always:
-                # Uncertain: a SPECULATIVE cut, the same view removal, so
-                # that a track certified at this very frame by the
-                # deferred pass still fuses the transition frame's view
-                if det.is_reconstructable():
-                    act = ACTION_CUT
-                elif det.is_possibly_dynamic():
-                    act = ACTION_REMOVE
-                else:
+            # per-slot actions from the current (frame k-1-updated) states
+            assoc = []
+            pending_j: Dict[int, int] = {}
+            copy_bbox = np.zeros((self.K, 4), np.float32)
+            mask_gate = np.zeros(self.K, bool)
+            warm_tr = np.zeros((self.K, 6), np.float32)
+            action = np.zeros(self.K, np.int32)
+            #: copy-mask pixels the fusion crop would lose, per slot
+            trunc_px = np.zeros(self.K, np.int64)
+            always = self.config.always_reconstruct_objects
+            for j, tf in enumerate(new_frames):
+                track = self._track_of_frame(tf)
+                det = tf.detection
+                assoc.append((j, track, tf, len(track.frames) - 1))
+                bb = det.copy_mask.bbox
+                copy_bbox[j] = (bb.x0, bb.y0, bb.x1, bb.y1)
+                mask_gate[j] = True
+                # warm start from the latest frame with a known twist (at lag
+                # 2 the immediately-previous frame's update is pending)
+                for f in reversed(track.frames[:-1]):
+                    if f.relative_pose_tr is not None:
+                        warm_tr[j] = f.relative_pose_tr
+                        break
+                if track.state == TrackState.UNCERTAIN \
+                        or track.state == TrackState.DYNAMIC or always:
+                    # Uncertain: a SPECULATIVE cut, the same view removal, so
+                    # that a track certified at this very frame by the
+                    # deferred pass still fuses the transition frame's view
+                    if det.is_reconstructable():
+                        act = ACTION_CUT
+                    elif det.is_possibly_dynamic():
+                        act = ACTION_REMOVE
+                    else:
+                        act = ACTION_KEEP
+                else:  # Static without always_reconstruct: stays in the view
                     act = ACTION_KEEP
-            else:  # Static without always_reconstruct: stays in the view
-                act = ACTION_KEEP
-            action[j] = act
-            if act == ACTION_CUT:
-                pending_j[track.id] = j
-                if self.mask_exceeds_crop(det, h, w):
-                    u0, v0 = crop_origins(copy_bbox[j:j + 1], h, w,
-                                          self.crop_h, self.crop_w)[0]
-                    full = det.copy_mask.to_full_frame(h, w)
-                    inside = full[v0: v0 + self.crop_h,
-                                  u0: u0 + self.crop_w].sum()
-                    trunc_px[j] = int(full.sum()) - int(inside)
+                action[j] = act
+                if act == ACTION_CUT:
+                    pending_j[track.id] = j
+                    if self.mask_exceeds_crop(det, h, w):
+                        u0, v0 = crop_origins(copy_bbox[j:j + 1], h, w,
+                                              self.crop_h, self.crop_w)[0]
+                        full = det.copy_mask.to_full_frame(h, w)
+                        inside = full[v0: v0 + self.crop_h,
+                                      u0: u0 + self.crop_w].sum()
+                        trunc_px[j] = int(full.sum()) - int(inside)
 
-        if masks_dev is not None:
-            delete_bits, copy_bits = (_bits_i32(x) for x in masks_dev)
-        else:
-            db, cb = self.pack_mask_bits(cands, h, w, self.K)
-            both = _bits_i32(upload(np.stack([db, cb]), dev))
-            delete_bits, copy_bits = both[0], both[1]
+            if masks_dev is not None:
+                delete_bits, copy_bits = (_bits_i32(x) for x in masks_dev)
+            else:
+                db, cb = self.pack_mask_bits(cands, h, w, self.K)
+                both = _bits_i32(upload(np.stack([db, cb]), dev))
+                delete_bits, copy_bits = both[0], both[1]
 
-        routing = Routing(
-            copy_bbox=copy_bbox, mask_gate=mask_gate, warm_tr=warm_tr,
-            action=action, slot_src=self._route_src,
-            fuse_pose=self._route_pose, slot_reset=self._route_reset,
-            slot_reap_w=self._route_reap,
-            max_decay_weight=float(self.decay_params.max_decay_weight),
-            min_decay_age=int(self.decay_params.min_decay_age),
-        )
+            routing = Routing(
+                copy_bbox=copy_bbox, mask_gate=mask_gate, warm_tr=warm_tr,
+                action=action, slot_src=self._route_src,
+                fuse_pose=self._route_pose, slot_reset=self._route_reset,
+                slot_reap_w=self._route_reap,
+                max_decay_weight=float(self.decay_params.max_decay_weight),
+                min_decay_age=int(self.decay_params.min_decay_age),
+            )
         prev_meta = self._dispatch_meta
         self.carry, self.last_outputs = fused_dynamic_step(
             self.cfg, self.icfg_fuse, self.stereo_params, self.vo_params,
@@ -886,125 +881,129 @@ class FusedDynamicPipeline:
         the same track."""
         frame_no, assoc, pending_j, dets, outputs, extra, fetch = meta
         host, event = fetch
-        if event is not None:
-            event.synchronize()
-        packed = host.numpy()
-        L = self._layout
+        # the packed fetch: where the host waits for the dispatch's device
+        # work
+        with _dyn_stage("fetch_wait"):
+            if event is not None:
+                event.synchronize()
+        with _dyn_stage("tracker"):
+            packed = host.numpy()
+            L = self._layout
 
-        def get(name):
-            o, n = L[name]
-            return packed[o: o + n]
+            def get(name):
+                o, n = L[name]
+                return packed[o: o + n]
 
-        delta = get("delta").reshape(4, 4)
-        egomotion = np.linalg.inv(delta).astype(np.float32)
-        pose = get("pose").reshape(4, 4).astype(np.float32)
-        self.pose_history.append(pose)
-        self.last_egomotion = egomotion
-        self.last_vo_success = bool(get("vo_success")[0] > 0.5)
-        self.last_vo_inliers = int(get("vo_inliers")[0])
-        obj_tr = get("obj_tr").reshape(self.K, 6).astype(np.float32)
-        obj_success = get("obj_success") > 0.5
-        obj_count = get("obj_count").astype(int)
-        self.last_fused_voxels = int(get("fused_voxels")[0])
-        self.last_march_samples = int(get("march_samples")[0])
+            delta = get("delta").reshape(4, 4)
+            egomotion = np.linalg.inv(delta).astype(np.float32)
+            pose = get("pose").reshape(4, 4).astype(np.float32)
+            self.pose_history.append(pose)
+            self.last_egomotion = egomotion
+            self.last_vo_success = bool(get("vo_success")[0] > 0.5)
+            self.last_vo_inliers = int(get("vo_inliers")[0])
+            obj_tr = get("obj_tr").reshape(self.K, 6).astype(np.float32)
+            obj_success = get("obj_success") > 0.5
+            obj_count = get("obj_count").astype(int)
+            self.last_fused_voxels = int(get("fused_voxels")[0])
+            self.last_march_samples = int(get("march_samples")[0])
 
-        min_flow = self.config.tracker.min_flow_vectors
-        for j, track, tf, _idx in assoc:
-            if track.id not in self.tracker.tracks:
-                continue  # pruned since dispatch (lag-2 ordering)
-            # association ran before this frame's pose was known
-            tf.camera_pose = pose
-            if obj_success[j] and obj_count[j] >= min_flow:
-                T = se3.np_twist_to_transform(obj_tr[j])
-                tf.precomputed_motion = (T, obj_tr[j].copy())
-            else:
-                tf.precomputed_motion = (None, None)
-            old_state = track.state
-            track.update(egomotion, None, frame=tf)
-            if self.verbose_tracker and track.state != old_state:
-                print(f"[tracker] frame {frame_no} track {track.id}: "
-                      f"{old_state.value} -> {track.state.value} "
-                      f"(flow {int(obj_count[j])}, "
-                      f"ok {bool(obj_success[j])})", file=sys.stderr)
-
-        # ProcessReconstructions, with fusion routed into a later dispatch
-        fmap = {track.id: (j, tf, idx) for j, track, tf, idx in assoc}
-        for track in list(self.tracker.active_tracks.values()):
-            ent = fmap.get(track.id)
-            det_frame = ent[1] if ent is not None else (
-                track.frames[-1] if track.frames else None)
-            if det_frame is None or \
-                    not det_frame.detection.is_reconstructable():
-                continue
-            if ent is None:
-                # no detection at frame_no: the stale-track reap path (at
-                # lag 2 the track may already hold a newer frame)
-                seen = [f.frame_idx for f in track.frames
-                        if f.frame_idx <= frame_no]
-                if not seen:
-                    continue
-                gap = frame_no - max(seen)
-                if track.needs_cleanup and track.has_reconstruction() \
-                        and gap >= 2:
-                    track.reap_reconstruction()
-                    track.needs_cleanup = False
-                continue
-            j, tf, idx = ent
-            if not track.has_reconstruction():
-                eligible = track.eligible_for_reconstruction() and (
-                    track.state == TrackState.DYNAMIC
-                    or (track.state == TrackState.STATIC
-                        and self.config.always_reconstruct_objects))
-                if eligible and self._free_slots:
-                    slot = self._free_slots.pop()
-                    track.reconstruction = _SlotHandle(self, slot)
-                    self._route_reset[slot] = True
-            if track.has_reconstruction() and track.id in pending_j \
-                    and track.state != TrackState.UNCERTAIN:
-                chain = track.get_frame_pose(idx)
-                if chain is None:
-                    continue
-                slot = track.reconstruction.slot
-                jj = pending_j[track.id]
-                t_px = int(extra["trunc_px"][jj])
-                if t_px > 0:
-                    self.oversize_masks += 1
-                if t_px > 0 and \
-                        self.config.instance_map.oversize_mask_fallback:
-                    # the crop would lose t_px mask pixels: fuse the full
-                    # masked frame now instead of routing the crop
-                    reset = bool(self._route_reset[slot])
-                    self._route_reset[slot] = False
-                    print(f"[frame {frame_no}: slot {slot} mask exceeds "
-                          f"the {self.crop_h}x{self.crop_w} fusion crop by "
-                          f"{t_px} px -> full-frame fallback fusion]",
-                          file=sys.stderr)
-                    h, w = self.cfg.height, self.cfg.width
-                    fuse_slot_fullframe(
-                        self.icfg, self.decay_params.enabled,
-                        self.carry.inst, self.carry.inst_fidx, slot,
-                        outputs.depth_m, extra["rgb"],
-                        self._exclusive_copy_mask(extra, jj, h, w), chain,
-                        reset, self.intr_host,
-                        float(self.decay_params.max_decay_weight),
-                        int(self.decay_params.min_decay_age))
+            min_flow = self.config.tracker.min_flow_vectors
+            for j, track, tf, _idx in assoc:
+                if track.id not in self.tracker.tracks:
+                    continue  # pruned since dispatch (lag-2 ordering)
+                # association ran before this frame's pose was known
+                tf.camera_pose = pose
+                if obj_success[j] and obj_count[j] >= min_flow:
+                    T = se3.np_twist_to_transform(obj_tr[j])
+                    tf.precomputed_motion = (T, obj_tr[j].copy())
                 else:
-                    if t_px > 0:
-                        # fallback off: the volume loses these pixels this
-                        # frame — counted and logged
-                        self.truncated_pixels += t_px
-                        print(f"[frame {frame_no}: slot {slot} mask "
-                              f"TRUNCATED by {t_px} px (fusion crop "
-                              f"{self.crop_h}x{self.crop_w}, "
-                              f"oversize_mask_fallback=False)]",
-                              file=sys.stderr)
-                    self._route_src[slot] = jj
-                    self._route_pose[slot] = chain.astype(np.float32)
-                track.reconstruction.fused_frames += 1
-                track.count_fused_frame()
-                track.needs_cleanup = True
+                    tf.precomputed_motion = (None, None)
+                old_state = track.state
+                track.update(egomotion, None, frame=tf)
+                if self.verbose_tracker and track.state != old_state:
+                    print(f"[tracker] frame {frame_no} track {track.id}: "
+                          f"{old_state.value} -> {track.state.value} "
+                          f"(flow {int(obj_count[j])}, "
+                          f"ok {bool(obj_success[j])})", file=sys.stderr)
 
-        self.tracker.prune_tracks(frame_no)
+            # ProcessReconstructions, with fusion routed into a later dispatch
+            fmap = {track.id: (j, tf, idx) for j, track, tf, idx in assoc}
+            for track in list(self.tracker.active_tracks.values()):
+                ent = fmap.get(track.id)
+                det_frame = ent[1] if ent is not None else (
+                    track.frames[-1] if track.frames else None)
+                if det_frame is None or \
+                        not det_frame.detection.is_reconstructable():
+                    continue
+                if ent is None:
+                    # no detection at frame_no: the stale-track reap path (at
+                    # lag 2 the track may already hold a newer frame)
+                    seen = [f.frame_idx for f in track.frames
+                            if f.frame_idx <= frame_no]
+                    if not seen:
+                        continue
+                    gap = frame_no - max(seen)
+                    if track.needs_cleanup and track.has_reconstruction() \
+                            and gap >= 2:
+                        track.reap_reconstruction()
+                        track.needs_cleanup = False
+                    continue
+                j, tf, idx = ent
+                if not track.has_reconstruction():
+                    eligible = track.eligible_for_reconstruction() and (
+                        track.state == TrackState.DYNAMIC
+                        or (track.state == TrackState.STATIC
+                            and self.config.always_reconstruct_objects))
+                    if eligible and self._free_slots:
+                        slot = self._free_slots.pop()
+                        track.reconstruction = _SlotHandle(self, slot)
+                        self._route_reset[slot] = True
+                if track.has_reconstruction() and track.id in pending_j \
+                        and track.state != TrackState.UNCERTAIN:
+                    chain = track.get_frame_pose(idx)
+                    if chain is None:
+                        continue
+                    slot = track.reconstruction.slot
+                    jj = pending_j[track.id]
+                    t_px = int(extra["trunc_px"][jj])
+                    if t_px > 0:
+                        self.oversize_masks += 1
+                    if t_px > 0 and \
+                            self.config.instance_map.oversize_mask_fallback:
+                        # the crop would lose t_px mask pixels: fuse the full
+                        # masked frame now instead of routing the crop
+                        reset = bool(self._route_reset[slot])
+                        self._route_reset[slot] = False
+                        print(f"[frame {frame_no}: slot {slot} mask exceeds "
+                              f"the {self.crop_h}x{self.crop_w} fusion crop "
+                              f"by {t_px} px -> full-frame fallback fusion]",
+                              file=sys.stderr)
+                        h, w = self.cfg.height, self.cfg.width
+                        fuse_slot_fullframe(
+                            self.icfg, self.decay_params.enabled,
+                            self.carry.inst, self.carry.inst_fidx, slot,
+                            outputs.depth_m, extra["rgb"],
+                            self._exclusive_copy_mask(extra, jj, h, w), chain,
+                            reset, self.intr_host,
+                            float(self.decay_params.max_decay_weight),
+                            int(self.decay_params.min_decay_age))
+                    else:
+                        if t_px > 0:
+                            # fallback off: the volume loses these pixels this
+                            # frame — counted and logged
+                            self.truncated_pixels += t_px
+                            print(f"[frame {frame_no}: slot {slot} mask "
+                                  f"TRUNCATED by {t_px} px (fusion crop "
+                                  f"{self.crop_h}x{self.crop_w}, "
+                                  f"oversize_mask_fallback=False)]",
+                                  file=sys.stderr)
+                        self._route_src[slot] = jj
+                        self._route_pose[slot] = chain.astype(np.float32)
+                    track.reconstruction.fused_frames += 1
+                    track.count_fused_frame()
+                    track.needs_cleanup = True
+
+            self.tracker.prune_tracks(frame_no)
 
         if self.evaluation is not None and (
                 self._final_frame is None or frame_no <= self._final_frame):

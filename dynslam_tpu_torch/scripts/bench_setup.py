@@ -272,6 +272,8 @@ def render_sets(sets, cache_dir: Path = BUILD_DIR):
 # ---------------------------------------------------------------------------
 
 STAGE_PREFIXES = ("fused_step.", "fused_dyn.", "fused_eval.", "render.")
+#: ``profile_frames``' range around the profiled frames and their drain
+WINDOW = "profile.window"
 
 
 def _busy_us(intervals) -> float:
@@ -285,14 +287,22 @@ def _busy_us(intervals) -> float:
 
 
 def summarize_trace(events, n: int, need_kernels: bool = True) -> dict:
-    """From a chrome trace of ``n`` frames: per stage (the
-    ``fused_step.*`` and ``fused_dyn.*`` ranges; the dynamic step's
-    ``fused_dyn.static`` holds the static step's allocate, integrate,
-    raycast and decay ranges) [host ms, device kernel ms, kernel launches,
-    memsets] a frame, the device's busy and spanned time (us) and the
-    kernel and memset counts (the raycast's bitmap and header clears are
-    memsets). Raises when ``need_kernels`` and no kernel ran."""
-    device = [(e["ts"], e["ts"] + e["dur"]) for e in events
+    """From a chrome trace of ``n`` frames in a ``profile.window`` range:
+    per stage (the ``fused_step.*`` and ``fused_dyn.*`` ranges; the
+    dynamic step's ``fused_dyn.static`` holds the static step's allocate,
+    integrate, raycast and decay ranges) [host ms, device kernel ms,
+    kernel launches, memsets] a frame, the device's busy time and the
+    window's wall time (us; the idle share is 1 - busy / window, as
+    ``benchmark/trace.py`` takes it) and the kernel and memset counts (the
+    raycast's bitmap and header clears are memsets). Raises when
+    ``need_kernels`` and no kernel ran."""
+    win = [e for e in events if e.get("name") == WINDOW
+           and e.get("cat") == "user_annotation"]
+    if not win:
+        raise ValueError(f"the trace has no {WINDOW} range")
+    w0, w1 = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
+    events = [e for e in events if w0 <= e.get("ts", w0 - 1) < w1]
+    device = [(e["ts"], min(e["ts"] + e["dur"], w1)) for e in events
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     kernels = sorted((e["ts"], e["dur"]) for e in events
                      if e.get("cat") == "kernel")
@@ -313,9 +323,7 @@ def summarize_trace(events, n: int, need_kernels: bool = True) -> dict:
             st[1] += sum(inside) / 1e3 / n
             st[2] += len(inside) / n
             st[3] += sum(t0 <= t < t1 for t in memsets) / n
-    span = (max(t1 for _, t1 in device) - min(t0 for t0, _ in device)
-            if device else 0.0)
-    return dict(stages=stages, busy=_busy_us(device), span=span,
+    return dict(stages=stages, busy=_busy_us(device), window=w1 - w0,
                 kernels=len(kernels), memsets=len(memsets))
 
 
@@ -327,7 +335,7 @@ def profile_frames(run_frames, n: int, out_dir: Path, tag: str = "profile",
     ``summarize_trace``'s table and writes the chrome trace to
     ``out_dir``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -335,9 +343,10 @@ def profile_frames(run_frames, n: int, out_dir: Path, tag: str = "profile",
     if cuda:
         torch.cuda.synchronize()
     with profile(activities=acts) as prof:
-        run_frames()
-        if cuda:
-            torch.cuda.synchronize()
+        with record_function(WINDOW):
+            run_frames()
+            if cuda:
+                torch.cuda.synchronize()
     trace = out_dir / name
     prof.export_chrome_trace(str(trace))
     summary = summarize_trace(json.loads(trace.read_text())["traceEvents"],
@@ -347,11 +356,11 @@ def profile_frames(run_frames, n: int, out_dir: Path, tag: str = "profile",
         print(f"[{tag}] {stage:22s} host {host:8.2f} ms, device kernels "
               f"{dev:7.2f} ms, {launches:6.0f} launches and {sets:3.0f} "
               "memsets a frame", flush=True)
-    busy, span = summary["busy"], summary["span"]
-    if span:
+    busy, window = summary["busy"], summary["window"]
+    if cuda:
         print(f"[{tag}] {n} frames under torch.profiler: device busy "
-              f"{busy / 1e3:.2f} of {span / 1e3:.2f} ms (idle share "
-              f"{1.0 - busy / span:.3f}), {summary['kernels'] / n:.0f} "
+              f"{busy / 1e3:.2f} of {window / 1e3:.2f} ms (idle share "
+              f"{1.0 - busy / window:.3f}), {summary['kernels'] / n:.0f} "
               f"launches and {summary['memsets'] / n:.0f} memsets a frame; "
               f"trace in {trace}", flush=True)
     return summary

@@ -24,8 +24,9 @@ from pathlib import Path
 
 #: the ranges every eval-off frame of the dynamic step passes through
 STAGES = tuple(f"fused_dyn.{s}" for s in (
-    "obj_ransac", "instances", "cut", "static")) + tuple(
-    f"fused_step.{s}" for s in ("stereo", "features", "egomotion",
+    "associate", "obj_ransac", "instances", "cut", "static", "fetch_wait",
+    "tracker")) + tuple(
+    f"fused_step.{s}" for s in ("upload", "stereo", "features", "egomotion",
                                 "allocate", "integrate", "raycast", "decay"))
 
 
