@@ -17,9 +17,10 @@ Phases, one line each (any failure raises, so the script exits non-zero
 and never prints its last line):
 
 1. device: a CUDA device is required; prints its name and power limit;
-2. build: compiles the hand-written kernels ``csrc/integrate.cu`` and
-   ``csrc/raycast.cu`` with nvcc (``sm_90a``, ``-fmad=false``), one nvcc
-   process per source, all started together; prints registers and spills;
+2. build: compiles the hand-written kernels ``csrc/integrate.cu``,
+   ``csrc/raycast.cu`` and ``csrc/egomotion.cu`` with nvcc (``sm_90a``,
+   ``-fmad=false``), one nvcc process per source, all started together;
+   prints registers and spills;
 3. K1: the fusion kernel against its plain PyTorch version
    ``integrate_ref`` on the card, at the bench configuration (1242x375,
    pool 2**17, local window 160x48x160);
@@ -241,9 +242,21 @@ and never prints its last line):
     >= 0.5x its eval-off mode; every kernel launched in every mode; the
     artifacts under the port's names in ``_build/bench/`` (the bench's
     default). Prints each mode's frame rate beside phases 5's and 8's,
-    its launches and peak memory.
+    its launches and peak memory;
+22. egomotion: phases 5 and 8's slices run again with every
+    ``estimate_motion_many`` call's inputs and draws recorded; each call
+    (visual odometry: K 1, N 2048, 500 hypotheses; objects: N 256, 200
+    hypotheses) and a batch of 16 object slots (the slices' 13 fullest,
+    then three degenerate: 4 valid matches, none, 256 identical ones)
+    through the kernels of ``csrc/egomotion.cu`` and through
+    ``estimate_motion_many_plain`` on the same draws: ``success`` equal,
+    twists within 1e-4, inlier flags equal but where the squared residual
+    sum lies within 1e-3 px^2 of the threshold, two kernel runs bitwise
+    equal, two launches a call. Prints both kernels' times on the largest
+    visual-odometry call and on the object batch, beside the plain
+    version's.
 
-Phases 3, 4, 7, 9, 12, 14, 15 and 17-21 also print each kernel's times:
+Phases 3, 4, 7, 9, 12, 14, 15 and 17-22 also print each kernel's times:
 the bare kernel (its prepared C call alone, no Python conversion between
 launches), warm (50 back-to-back launches between two CUDA events) and
 cold (the L2
@@ -323,7 +336,7 @@ K2_MAX_MEDIAN_DEPTH = 1e-4  # m
 #: kernel) and the march (header clear and kernel), and no small ops
 RAYCAST_STAGE_MAX_LAUNCHES = 8
 #: kernel sources under dynslam_tpu_torch/csrc/
-KERNEL_SOURCES = ("integrate", "raycast")
+KERNEL_SOURCES = ("integrate", "raycast", "egomotion")
 #: a fused run's last render: the share of pixels that hit the map, at
 #: least (``PERF.md`` §2)
 MIN_HIT_FRACTION = 0.5
@@ -4232,6 +4245,333 @@ def run_phase20(base, sdir: Path, config, dconfig, frames, dyn_frames, device,
 
 
 # ---------------------------------------------------------------------------
+# phase 22: the egomotion kernels against their plain version
+# ---------------------------------------------------------------------------
+
+#: phase 22: the object batch's mask slots (the dynamic step's K), the
+#: widest twist gap to the plain version, and the band around the inlier
+#: threshold (px^2) within which a match's inlier flag may differ: its
+#: squared residual sum is then within rounding of the threshold, and the
+#: order of the sums decides it
+EGO_K = 16
+EGO_TR_TOL = 1e-4
+EGO_INLIER_BAND = 1e-3
+#: operations estimated a match and Gauss-Newton step (triangulation,
+#: transform, projection, the 4 x 6 Jacobian, the 27 products of 4 rows)
+#: and a match's inlier test, for ``bound``; not counted from the compiled
+#: kernels. The kernels wait on their serial chain of dependent sums and
+#: solves, not on operations or bytes, so their share of this bound says
+#: nothing of how far they are from what they could reach
+OPS_PER_GN_MATCH = 360
+OPS_PER_TEST_MATCH = 45
+
+
+class MotionRecorder:
+    """Stands in for ``egomotion.estimate_motion_many`` while installed:
+    draws the hypotheses from the caller's generator where the caller gave
+    none (as the wrapper does), keeps a copy of each call's inputs with
+    its draws, and runs the wrapper on them."""
+
+    def __init__(self, ego):
+        self.ego, self.fn, self.calls = ego, ego.estimate_motion_many, []
+
+    def __call__(self, flow, valid, calib_vec, initial_tr, params,
+                 generator=None, sample_ids=None):
+        if sample_ids is None:
+            sample_ids = self.ego.draw_sample_ids(valid, params.ransac_iters,
+                                                  generator)
+        self.calls.append(dict(
+            flow=flow.clone(), valid=valid.clone(), calib=calib_vec.clone(),
+            warm=initial_tr.clone(), ids=sample_ids.clone(), params=params))
+        return self.fn(flow, valid, calib_vec, initial_tr, params,
+                       sample_ids=sample_ids)
+
+
+def record_motions(config, frames, dconfig, dyn_frames, device) -> list:
+    """Every ``estimate_motion_many`` call of phase 5's static slice and of
+    phase 8's dynamic one (run again, without their checks): inputs and
+    draws."""
+    from dynslam_tpu_torch.ops import cuda_build
+    from dynslam_tpu_torch.ops import egomotion as ego
+
+    rec = MotionRecorder(ego)
+    ego.estimate_motion_many = rec
+    try:
+        run_slice(config, frames, device, census_frame=-1, tag="ego-slice")
+        run_dynamic(dconfig, dyn_frames, device, cuda_build.BUILD_DIR,
+                    census_frames=(), profile=False, tag="ego-dyn")
+    finally:
+        ego.estimate_motion_many = rec.fn
+    return rec.calls
+
+
+def degenerate_slots(slot, calib, iters: int, device):
+    """Three slots of ``slot``'s shape (a (flow, valid) pair of N rows):
+    its first 4 valid matches alone, none valid, and N identical matches
+    that a zero motion fits exactly (a point on the principal ray, its
+    right image computed in float32 as the residuals compute it)."""
+    import numpy as np
+    import torch
+
+    flow, valid = slot
+    N = flow.shape[0]
+    few = torch.zeros_like(valid)
+    few[torch.nonzero(valid)[:4, 0]] = True
+    fx, cu, cv, b = (np.float32(x) for x in calib.cpu().numpy())
+    u2p = np.float32(cu - np.float32(20.0))
+    z = (fx * b) / np.float32(cu - u2p)
+    ur = (fx * (np.float32(0.0) - b)) / z + cu
+    same = torch.tensor([cu, cv, ur, cv, cu, cv, u2p, cv],
+                        dtype=torch.float32, device=device).expand(N, 8)
+    return [(flow, few), (flow, torch.zeros_like(valid)),
+            (same.contiguous(), torch.ones_like(valid))]
+
+
+def object_batch(calls, obj_params, device, seed: int = SEED):
+    """Up to ``EGO_K`` object slots of N = ``OBJ_MATCH_CAP`` matches: the
+    dynamic slice's recorded ones with the most valid matches (with their
+    warm starts and draws), then three degenerate slots
+    (``degenerate_slots``). Returns (flow, valid, calib, warm, ids, the
+    degenerate slots' indices)."""
+    import torch
+
+    from dynslam_tpu_torch.ops import egomotion as ego
+    from dynslam_tpu_torch.pipeline.fused_dynamic import OBJ_MATCH_CAP
+
+    objs = [c for c in calls if c["flow"].shape[1] == OBJ_MATCH_CAP]
+    slots = [(c["flow"][k], c["valid"][k], c["warm"][k], c["ids"][k])
+             for c in objs for k in range(c["flow"].shape[0])]
+    slots.sort(key=lambda s: -int(s[1].sum()))
+    slots = slots[:EGO_K - 3]
+    calib = objs[0]["calib"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    zero = torch.zeros(6, device=device)
+    for f, v in degenerate_slots(slots[0][:2], calib, obj_params.ransac_iters,
+                                 device):
+        ids = ego.draw_sample_ids(v[None], obj_params.ransac_iters, gen)[0]
+        slots.append((f, v, zero, ids))
+    flow, valid, warm, ids = (torch.stack([s[i] for s in slots])
+                              for i in range(4))
+    deg = list(range(len(slots) - 3, len(slots)))
+    return flow.contiguous(), valid, calib, warm, ids, deg
+
+
+def compare_motion(got, want, flow, valid, calib, params, what: str) -> dict:
+    """The kernels' estimate against the plain version's: ``success``
+    equal, the twists within ``EGO_TR_TOL``, and the inlier flags equal
+    except where the plain version's squared residual sum (at its final
+    twist, where it succeeded) lies within ``EGO_INLIER_BAND`` of the
+    threshold. Returns the gaps."""
+    import torch
+
+    from dynslam_tpu_torch.ops import egomotion as ego
+
+    if not torch.equal(got.success, want.success):
+        raise AssertionError(f"{what}: success {got.success.tolist()}, plain "
+                             f"{want.success.tolist()}")
+    tr_gap = float((got.tr - want.tr).abs().max())
+    if not tr_gap <= EGO_TR_TOL:
+        raise AssertionError(f"{what}: twist gap {tr_gap:.3g} > {EGO_TR_TOL}")
+    fx, cu, cv, b = calib[0], calib[1], calib[2], calib[3]
+    pts = ego.triangulate_prev(flow, fx, cu, cv, b)
+    r = ego._residuals(want.tr, pts, flow, fx, cu, cv, b)
+    thresh = params.inlier_threshold_px ** 2 * 4.0
+    near = ((r * r).sum(-1) - thresh).abs() < EGO_INLIER_BAND
+    differ = got.inliers != want.inliers
+    bad = differ & ~(near & want.success[:, None])
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} inlier flags differ away from the "
+            f"threshold (slots {torch.nonzero(bad)[:, 0].unique().tolist()})")
+    return dict(tr_gap=tr_gap,
+                T_gap=float((got.matrix - want.matrix).abs().max()),
+                flags=int(differ.sum()),
+                num_gap=int((got.num_inliers - want.num_inliers).abs().max()),
+                success=int(want.success.sum()),
+                slots=int(want.success.numel()))
+
+
+def motion_times(batch, params, flush) -> dict:
+    """Bare times of both kernels on one batch, the wrapper's (draws
+    given) and the plain version's, with each kernel's bound."""
+    from dynslam_tpu_torch.ops import egomotion as ego
+
+    flow, valid, calib, warm, ids = batch
+    K, N = valid.shape
+    iters = ids.shape[1]
+    run = ego.launch_args(flow, valid, calib, warm, ids, params)
+    wrapper = median_ms(lambda: ego.estimate_motion_many(
+        flow, valid, calib, warm, params, sample_ids=ids), 20)
+    plain = median_ms(lambda: ego.estimate_motion_many_plain(
+        flow, valid, calib, warm, params, sample_ids=ids), 3)
+    steps = params.gn_iters + 4 * params.irls_rounds
+    match_bytes = K * N * (8 * 4 + 1)
+    a = dict(kernel_times(run.hypotheses, flush), wrapper_ms=wrapper,
+             plain_ms=plain, **bound(
+                 match_bytes + K * iters * (3 * 8 + 6 * 4 + 4),
+                 K * iters * (6 * 3 * OPS_PER_GN_MATCH
+                              + N * OPS_PER_TEST_MATCH)))
+    b = dict(kernel_times(run.refine, flush), wrapper_ms=wrapper,
+             plain_ms=plain, **bound(
+                 match_bytes + K * iters * 4 + K * (N + 6 * 4 + 16 * 4 + 9),
+                 K * N * (steps * OPS_PER_GN_MATCH
+                          + (2 + params.irls_rounds) * OPS_PER_TEST_MATCH)))
+    return dict(hypotheses=a, refine=b, chain=6 + steps)
+
+
+def check_egomotion(config, frames, dconfig, dyn_frames, device,
+                    flush) -> dict:
+    """Phase 22: the kernels of ``estimate_motion_many`` held to
+    ``estimate_motion_many_plain`` on the card, on the same draws: every
+    visual-odometry call of phases 5 and 8 (K 1, N 2048, 500 hypotheses),
+    every object call of phase 8 and a batch of ``EGO_K`` object slots
+    with three degenerate ones (N 256, 200 hypotheses); two runs bitwise
+    equal; two launches a call; the kernels' times on the largest
+    visual-odometry call and on the object batch."""
+    import torch
+
+    from dynslam_tpu_torch.ops import egomotion as ego
+    from dynslam_tpu_torch.pipeline.fused_dynamic import OBJ_MATCH_CAP
+
+    before = ego.launches
+    calls = record_motions(config, frames, dconfig, dyn_frames, device)
+    if ego.launches - before != 2 * len(calls):
+        raise AssertionError(f"{len(calls)} calls of the slices made "
+                             f"{ego.launches - before} kernel launches")
+    vo_calls = [c for c in calls if c["flow"].shape[1] != OBJ_MATCH_CAP]
+    obj_calls = [c for c in calls if c["flow"].shape[1] == OBJ_MATCH_CAP]
+    if not vo_calls or not obj_calls:
+        raise AssertionError(f"{len(vo_calls)} visual-odometry and "
+                             f"{len(obj_calls)} object calls recorded")
+    obj_params = obj_calls[0]["params"]
+
+    def both(flow, valid, calib, warm, ids, params, what):
+        n0 = ego.launches
+        got = ego.estimate_motion_many(flow, valid, calib, warm, params,
+                                       sample_ids=ids)
+        again = ego.estimate_motion_many(flow, valid, calib, warm, params,
+                                         sample_ids=ids)
+        want = ego.estimate_motion_many_plain(flow, valid, calib, warm,
+                                              params, sample_ids=ids)
+        torch.cuda.synchronize()
+        if ego.launches - n0 != 4:
+            raise AssertionError(f"{what}: {ego.launches - n0} launches "
+                                 "for two calls")
+        for name, x, y in zip(ego.MotionEstimate._fields, got, again):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: two runs differ in {name}")
+        return compare_motion(got, want, flow, valid, calib, params, what)
+
+    def worst(rs):
+        return dict(tr_gap=max(r["tr_gap"] for r in rs),
+                    T_gap=max(r["T_gap"] for r in rs),
+                    flags=sum(r["flags"] for r in rs),
+                    num_gap=max(r["num_gap"] for r in rs),
+                    success=sum(r["success"] for r in rs),
+                    slots=sum(r["slots"] for r in rs))
+
+    vo = worst([both(c["flow"], c["valid"], c["calib"], c["warm"], c["ids"],
+                     c["params"], f"visual odometry call {i}")
+                for i, c in enumerate(vo_calls)])
+    obj = worst([both(c["flow"], c["valid"], c["calib"], c["warm"],
+                      c["ids"], c["params"], f"object call {i}")
+                 for i, c in enumerate(obj_calls)])
+    *batch, deg = object_batch(calls, obj_params, device)
+    ob = both(*batch, obj_params,
+              f"the {batch[1].shape[0]}-slot object batch")
+    got = ego.estimate_motion_many(*batch[:4], obj_params,
+                                   sample_ids=batch[4])
+    if got.success[deg].tolist() != [False, False, True] \
+            or not torch.equal(got.tr[deg[2]], torch.zeros_like(got.tr[0])):
+        raise AssertionError(f"degenerate slots: success "
+                             f"{got.success[deg].tolist()}, identical "
+                             f"matches' twist {got.tr[deg[2]].tolist()}")
+    big = max(vo_calls, key=lambda c: int(c["valid"].sum()))
+    vt = motion_times([big[k] for k in ("flow", "valid", "calib", "warm",
+                                        "ids")], big["params"], flush)
+    ot = motion_times(batch, obj_params, flush)
+    return dict(vo=vo, obj=obj, batch=ob, vo_times=vt, obj_times=ot,
+                n_vo=len(vo_calls), n_obj=len(obj_calls),
+                vo_valid=int(big["valid"].sum()),
+                vo_shape=(tuple(big["valid"].shape), big["ids"].shape[1]),
+                obj_shape=(tuple(batch[1].shape), batch[4].shape[1]))
+
+
+def motion_text(r: dict) -> str:
+    return (f"success equal on {r['slots']} slots ({r['success']} "
+            f"succeeded), max |dtr| {r['tr_gap']:.3g} (limit {EGO_TR_TOL}), "
+            f"max |dT| {r['T_gap']:.3g}, {r['flags']} inlier flags differ "
+            f"(each within {EGO_INLIER_BAND} px^2 of the threshold), max "
+            f"|dnum_inliers| {r['num_gap']}")
+
+
+def motion_libraries() -> dict:
+    """The versions of the libraries whose summation order the egomotion
+    kernels copy (``ops/egomotion.py::reduction_orders``), so that a twist
+    gap after an upgrade names its cause; cuBLAS's (major.minor.patch) is
+    read from the library this process loaded, None where none is."""
+    import ctypes
+
+    import torch
+
+    with open("/proc/self/maps") as f:
+        libs = sorted({ln.split()[-1] for ln in f if "libcublas.so" in ln})
+    cublas = None
+    if libs:
+        lib, parts = ctypes.CDLL(libs[0]), []
+        for prop in range(3):  # MAJOR_VERSION, MINOR_VERSION, PATCH_LEVEL
+            v = ctypes.c_int()
+            if lib.cublasGetProperty(prop, ctypes.byref(v)) != 0:
+                break
+            parts.append(str(v.value))
+        else:
+            cublas = ".".join(parts)
+    return dict(torch=torch.__version__, cuda=torch.version.cuda,
+                cublas=cublas)
+
+
+def report_egomotion(eg: dict) -> None:
+    """Phase 22's lines."""
+    (vk, vn), vi = eg["vo_shape"]
+    (ok_, on), oi = eg["obj_shape"]
+    say("egomotion", f"kernels vs estimate_motion_many_plain on the same "
+                     f"draws, {eg['n_vo']} visual-odometry calls (K {vk}, N "
+                     f"{vn}, {vi} hypotheses): {motion_text(eg['vo'])}")
+    say("egomotion", f"{eg['n_obj']} object calls: {motion_text(eg['obj'])}")
+    say("egomotion", "summation orders copied from " + ", ".join(
+        f"{k} {v}" for k, v in motion_libraries().items()))
+    say("egomotion", f"the object batch (K {ok_}, N {on}, {oi} hypotheses; "
+                     f"the last three slots degenerate: 4 valid matches, "
+                     f"none, {on} identical): {motion_text(eg['batch'])}; "
+                     f"two runs bitwise equal, two launches a call")
+    for tag, t in (("visual odometry", eg["vo_times"]),
+                   ("object batch", eg["obj_times"])):
+        for kernel in ("hypotheses", "refine"):
+            say(f"egomotion-{kernel}", f"{tag} ({t['chain']} serial steps "
+                                       f"in all): {timing_text(t[kernel])}")
+
+
+def egomotion_entries(eg: dict) -> list:
+    """Phase 22's entries of the kernels JSON line: each kernel on the
+    visual odometry's largest call and on the object batch, with the
+    calls the slices made (one launch of each kernel a call) and their
+    frames."""
+    src = dict(route="cuda", source="dynslam_tpu_torch/csrc/egomotion.cu",
+               replaces=None, libraries=motion_libraries())
+    frames = (N_FRAMES - 1) + (N_DYN - 1)
+    out = []
+    for tag, t, calls, per, gap in (
+            ("", eg["vo_times"], eg["n_vo"], eg["n_vo"] / frames, eg["vo"]),
+            ("/objects", eg["obj_times"], eg["n_obj"],
+             eg["n_obj"] / (N_DYN - 1), eg["batch"])):
+        for kernel in ("hypotheses", "refine"):
+            out.append(kernel_entry(f"egomotion-{kernel}{tag}", src, calls,
+                                    per, dict(t[kernel],
+                                              max_abs_err=gap["tr_gap"])))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 21: the port's bench
 # ---------------------------------------------------------------------------
 
@@ -4425,8 +4765,9 @@ def build_kernels(parent: Optional[Path]) -> dict:
 
     jobs = [(name, "", cuda_build.CSRC_DIR) for name in KERNEL_SOURCES]
     if parent is not None:
-        jobs += [(name, "parent ", parent / "dynslam_tpu_torch" / "csrc")
-                 for name in KERNEL_SOURCES]
+        pdir = parent / "dynslam_tpu_torch" / "csrc"
+        jobs += [(name, "parent ", pdir) for name in KERNEL_SOURCES
+                 if (pdir / f"{name}.cu").exists()]
     with ThreadPoolExecutor(len(jobs) + 1) as ex:
         native = ex.submit(native_build.build)
         built = list(ex.map(lambda j: cuda_build.build(j[0], j[2]), jobs))
@@ -5185,10 +5526,16 @@ def main(argv=None) -> int:
             kernel_entry(f"raycast/{tag}", k2_src, launches["raycast"],
                          launches["raycast"] / per, times[2]),
         ]
+    clock(22)
+    # 22. the egomotion kernels vs plain, on phases 5 and 8's frames
+    eg = check_egomotion(config, frames, dconfig, dyn_frames, device, flush)
+    report_egomotion(eg)
+    kernels += egomotion_entries(eg)
+
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"paths whose kernel never launched: {idle}")
-    say("done", f"phases 1-21 in {time.perf_counter() - t_start:.1f} s")
+    say("done", f"phases 1-22 in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,16 +12,29 @@ takes the draws as an optional ``sample_ids`` (iters, 3) input; by
 default it draws them (Gumbel top-3, i.e. sampling without replacement)
 from a ``torch.Generator``. The Jacobian of the residuals is written out
 analytically where the JAX package used ``jax.jacfwd``.
+
+``estimate_motion_many`` dispatches on the device of ``flow``: CPU tensors
+take the plain version ``estimate_motion_many_plain``; CUDA tensors take
+the two kernels of ``csrc/egomotion.cu`` (RANSAC hypotheses and inlier
+counts, then the Gauss-Newton/IRLS refinement of the best one), and a
+failed build or launch raises. The draws stay in PyTorch, before the
+kernels, so both versions refine the same hypotheses and leave the
+generator in the same state. ``launches`` counts the kernel launches.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from dynslam_tpu_torch.config import VisualOdometryParams
+from dynslam_tpu_torch.ops import cuda_build
 from dynslam_tpu_torch.utils import se3
+
+#: kernel launches of ``estimate_motion_many`` on CUDA tensors (two a call)
+launches = 0
 
 
 class MotionEstimate(NamedTuple):
@@ -159,7 +172,7 @@ def _pick(x: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx.expand(-1, 1, *x.shape[2:]))[:, 0]
 
 
-def estimate_motion_many(
+def estimate_motion_many_plain(
     flow: torch.Tensor,  # (K, N, 8) RawFlow rows, one set per mask
     valid: torch.Tensor,  # (K, N) bool
     calib_vec: torch.Tensor,  # (4,): fx, cu, cv, baseline
@@ -169,8 +182,8 @@ def estimate_motion_many(
     sample_ids: Optional[torch.Tensor] = None,  # (K, iters, 3) int
 ) -> MotionEstimate:
     """K independent estimates in one batch — the counterpart of the JAX
-    package's ``jax.vmap`` of ``estimate_motion`` over mask slots. Every
-    field of the result has a leading K axis."""
+    package's ``jax.vmap`` of ``estimate_motion`` over mask slots — in
+    plain PyTorch. Every field of the result has a leading K axis."""
     fx, cu, cv, baseline = (calib_vec[0], calib_vec[1], calib_vec[2],
                             calib_vec[3])
     pts = triangulate_prev(flow, fx, cu, cv, baseline)  # (K, N, 3)
@@ -232,6 +245,159 @@ def estimate_motion_many(
     T = torch.where(success[:, None, None], T,
                     torch.eye(4, dtype=T.dtype, device=T.device))
     return MotionEstimate(tr_final, T, final_inl, num_inl, success)
+
+
+def _check_args(flow, valid, calib_vec, initial_tr, sample_ids) -> None:
+    """Raise ValueError on what the kernels do not take: ``flow`` float32
+    (K, N, 8) with unit stride along its rows; ``valid`` bool (K, N) and
+    ``calib_vec`` float32 (4,), both contiguous; ``initial_tr`` float32
+    (K, 6) with unit stride along its rows; ``sample_ids`` (K, iters, 3)
+    int32 or int64 and contiguous; K, N and iters at least 1; all but the
+    draws on ``flow``'s device."""
+    if flow.dim() != 3 or flow.shape[2] != 8 or flow.dtype != torch.float32:
+        raise ValueError("estimate_motion_many: flow must be float32 "
+                         f"(K, N, 8), got {flow.dtype} {tuple(flow.shape)}")
+    K, N = flow.shape[:2]
+    if K < 1 or N < 1:
+        raise ValueError("estimate_motion_many: K and N must be at least 1")
+    if valid.shape != (K, N) or valid.dtype != torch.bool:
+        raise ValueError(f"estimate_motion_many: valid must be bool {(K, N)}"
+                         f", got {valid.dtype} {tuple(valid.shape)}")
+    if calib_vec.shape != (4,) or calib_vec.dtype != torch.float32:
+        raise ValueError("estimate_motion_many: calib_vec must be float32 "
+                         "(4,)")
+    if initial_tr.shape != (K, 6) or initial_tr.dtype != torch.float32:
+        raise ValueError("estimate_motion_many: initial_tr must be float32 "
+                         f"{(K, 6)}, got {initial_tr.dtype} "
+                         f"{tuple(initial_tr.shape)}")
+    if sample_ids is not None and (
+            sample_ids.dim() != 3 or sample_ids.shape[0] != K
+            or sample_ids.shape[1] < 1 or sample_ids.shape[2] != 3
+            or sample_ids.dtype not in (torch.int32, torch.int64)):
+        raise ValueError("estimate_motion_many: sample_ids must be int32 or "
+                         f"int64 ({K}, iters, 3), got {sample_ids.dtype} "
+                         f"{tuple(sample_ids.shape)}")
+    for name, t in (("valid", valid), ("calib_vec", calib_vec),
+                    ("initial_tr", initial_tr)):
+        if t.device != flow.device:
+            raise ValueError(f"estimate_motion_many: {name} on {t.device}, "
+                             f"flow on {flow.device}")
+    # the kernels read a row's elements one after another; rows and slots
+    # may lie at any stride (the staged pipeline's flow is a view of a
+    # packed upload, the dynamic step's warm starts one of a wider table)
+    if flow.stride(2) != 1 or initial_tr.stride(1) != 1 \
+            or not valid.is_contiguous() or not calib_vec.is_contiguous() \
+            or (sample_ids is not None and not sample_ids.is_contiguous()):
+        raise ValueError("estimate_motion_many: flow and initial_tr need "
+                         "unit stride along their rows, valid, calib_vec "
+                         "and sample_ids must be contiguous")
+
+
+def reduction_orders(K: int, iters: int, N: int):
+    """The orders in which the plain version's cuBLAS products sum on the
+    card, as the kernels reproduce them (``csrc/egomotion.cu``'s note):
+    (``jtr_strided``: a hypothesis' J^T r as even and odd rows rather than
+    two blocks of 6; ``jtj_chunks``: the split-K chunks of the
+    refinement's J^T J; ``gemv_blocks``: 0 where the refinement's J^T r is
+    a warp's 32 strided chains, else its number of blocks of 128 leaves).
+    Measured on an H100 with CUDA 12.8's cuBLAS at K 1-16 slots of 256
+    matches and 200 hypotheses and at K 1 of 2048 and 500: the batched
+    products choose by batch size, a single slot's refinement splits K.
+    Elsewhere they are the nearest rule, and the kernels may round
+    otherwise than the plain version."""
+    rows = 4 * N
+    jtr_strided = 1400 <= K * iters <= 2800
+    if K > 1:
+        return jtr_strided, 1, 0
+    jtj_chunks = max(1, rows // 32) if rows <= 1024 else 128
+    return jtr_strided, jtj_chunks, min(-(-rows // 128), 31)
+
+
+class _Launches(NamedTuple):
+    """The kernels' two C calls, prepared (``cuda_build.Launch``), and the
+    estimate they write."""
+
+    hypotheses: cuda_build.Launch
+    refine: cuda_build.Launch
+    out: MotionEstimate
+
+
+def launch_args(flow, valid, calib_vec, initial_tr, sample_ids,
+                params: VisualOdometryParams) -> _Launches:
+    """The two kernels' C calls over ``flow``'s K slots with the draws
+    ``sample_ids`` (int64 on the device), ready to run in order on the
+    current stream, and the outputs and scratch they fill (no launch)."""
+    dev = flow.device
+    K, N = valid.shape
+    iters = sample_ids.shape[1]
+    f32 = torch.float32
+    jtr_strided, jtj_chunks, gemv_blocks = reduction_orders(K, iters, N)
+    trs = torch.empty(K, iters, 6, dtype=f32, device=dev)
+    counts = torch.empty(K, iters, dtype=torch.int32, device=dev)
+    weights = torch.empty(K, 3, N, dtype=f32, device=dev)
+    out = MotionEstimate(
+        torch.empty(K, 6, dtype=f32, device=dev),
+        torch.empty(K, 4, 4, dtype=f32, device=dev),
+        torch.empty(K, N, dtype=torch.bool, device=dev),
+        torch.empty(K, dtype=torch.int64, device=dev),
+        torch.empty(K, dtype=torch.bool, device=dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the plain version compares the squared residual sum with a float32
+    # threshold and divides by c^2 as PyTorch divides a CUDA tensor by a
+    # Python scalar: a product with its float32 reciprocal
+    thresh = float(params.inlier_threshold_px ** 2 * 4.0)
+    c2 = np.float32(params.tukey_c_px * params.tukey_c_px)
+    inv_c2 = float(np.float32(1.0) / c2)
+    slot_stride, row_stride = flow.stride(0), flow.stride(1)
+    fa = cuda_build.function("egomotion", "dynslam_egomotion_hypotheses",
+                             "p ii ppp i p iii f i pp p")
+    fb = cuda_build.function("egomotion", "dynslam_egomotion_refine",
+                             "p ii pppp iii ff iiii p ppppp p")
+    hyp = cuda_build.Launch(fa, (
+        flow.data_ptr(), slot_stride, row_stride, valid.data_ptr(),
+        calib_vec.data_ptr(), initial_tr.data_ptr(), initial_tr.stride(0),
+        sample_ids.data_ptr(), K, N, iters, thresh, int(jtr_strided),
+        trs.data_ptr(), counts.data_ptr(), stream),
+        (flow, valid, calib_vec, initial_tr, sample_ids, trs, counts))
+    ref = cuda_build.Launch(fb, (
+        flow.data_ptr(), slot_stride, row_stride, valid.data_ptr(),
+        calib_vec.data_ptr(), trs.data_ptr(), counts.data_ptr(), K, N, iters,
+        thresh, inv_c2, params.gn_iters, params.irls_rounds, jtj_chunks,
+        gemv_blocks, weights.data_ptr(), *(t.data_ptr() for t in out),
+        stream), (flow, valid, calib_vec, trs, counts, weights, *out))
+    return _Launches(hyp, ref, out)
+
+
+def estimate_motion_many(
+    flow: torch.Tensor,  # (K, N, 8) RawFlow rows, one set per mask
+    valid: torch.Tensor,  # (K, N) bool
+    calib_vec: torch.Tensor,  # (4,): fx, cu, cv, baseline
+    initial_tr: torch.Tensor,  # (K, 6) warm starts
+    params: VisualOdometryParams,
+    generator: Optional[torch.Generator] = None,
+    sample_ids: Optional[torch.Tensor] = None,  # (K, iters, 3) int
+) -> MotionEstimate:
+    """K independent estimates in one batch (``estimate_motion_many_plain``
+    for its rule). CPU tensors: the plain version; CUDA tensors: the two
+    kernels of ``csrc/egomotion.cu`` after the draws, two launches, no
+    host sync. The arguments are checked first on either device."""
+    global launches
+    _check_args(flow, valid, calib_vec, initial_tr, sample_ids)
+    dev = flow.device
+    if dev.type == "cpu":
+        return estimate_motion_many_plain(flow, valid, calib_vec, initial_tr,
+                                          params, generator, sample_ids)
+    if dev.type != "cuda":
+        raise ValueError(f"estimate_motion_many: unsupported device {dev}")
+    if sample_ids is None:
+        sample_ids = draw_sample_ids(valid, params.ransac_iters, generator)
+    ids = sample_ids.to(device=dev, dtype=torch.int64)
+    run = launch_args(flow, valid, calib_vec, initial_tr, ids, params)
+    cuda_build.check_launch(run.hypotheses(), "egomotion hypotheses")
+    launches += 1
+    cuda_build.check_launch(run.refine(), "egomotion refine")
+    launches += 1
+    return run.out
 
 
 def estimate_motion(

@@ -132,3 +132,151 @@ def test_mask_batched_motion_matches_jax_vmap(frames):
         assert torch.allclose(one.tr, est_t.tr[j], atol=1e-6), j
         assert bool(one.success) == bool(est_t.success[j])
         assert int(one.num_inliers) == int(est_t.num_inliers[j])
+
+
+def synthetic_flow(K: int, N: int, seed: int):
+    """K slots of N matches of random points 6-30 m ahead seen before and
+    after a small known motion (viso2 twist), with pixel noise, 10%
+    outliers and the last eighth of each slot invalid; with their
+    calibration vector, warm starts and a generator's draws."""
+    rng = np.random.default_rng(seed)
+    fx, cu, cv, base = 160.0, 96.0, 48.0, 0.5
+    flows = np.zeros((K, N, 8), np.float32)
+    for k in range(K):
+        P = np.stack([rng.uniform(-8, 8, N), rng.uniform(-2, 2, N),
+                      rng.uniform(6, 30, N)], -1)
+        tr = rng.normal(0, [0.01, 0.02, 0.01, 0.1, 0.05, 0.5])
+        Q = P @ se3_np(tr)[:3, :3].T + tr[3:]
+
+        def proj(X):
+            return (fx * X[:, 0] / X[:, 2] + cu, fx * X[:, 1] / X[:, 2] + cv,
+                    fx * (X[:, 0] - base) / X[:, 2] + cu)
+
+        ul, vl, ur = proj(Q)
+        u1, v1, u2 = proj(P)
+        f = np.stack([ul, vl, ur, vl, u1, v1, u2, v1], -1)
+        f += rng.normal(0, 0.3, f.shape)
+        out = rng.random(N) < 0.1
+        f[out, :4] += rng.uniform(-20, 20, (int(out.sum()), 4))
+        flows[k] = f
+    valid = np.ones((K, N), bool)
+    valid[:, N - N // 8:] = False
+    calib_vec = torch.tensor([fx, cu, cv, base], dtype=torch.float32)
+    return (torch.tensor(flows), torch.tensor(valid), calib_vec,
+            torch.zeros(K, 6))
+
+
+def se3_np(tr):
+    from dynslam_tpu_torch.utils.se3 import np_twist_to_transform
+
+    return np_twist_to_transform(tr)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """The wrapper hands CPU tensors to ``estimate_motion_many_plain`` and
+    returns what it returns, bit for bit, with given draws and with a
+    generator's, and launches nothing."""
+    import dataclasses
+
+    flow, valid, calib_vec, warm = synthetic_flow(3, 96, seed=7)
+    params = dataclasses.replace(VO, ransac_iters=40)
+    ids = te.draw_sample_ids(valid, params.ransac_iters,
+                             torch.Generator().manual_seed(1))
+    before = te.launches
+    for case in ("int64 draws", "int32 draws", "generator"):
+        def draws():  # a fresh generator for each side
+            return {"int64 draws": dict(sample_ids=ids),
+                    "int32 draws": dict(sample_ids=ids.to(torch.int32)),
+                    "generator": dict(
+                        generator=torch.Generator().manual_seed(2))}[case]
+
+        got = te.estimate_motion_many(flow, valid, calib_vec, warm, params,
+                                      **draws())
+        want = te.estimate_motion_many_plain(flow, valid, calib_vec, warm,
+                                             params, **draws())
+        for name, g, w in zip(te.MotionEstimate._fields, got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), (case, name)
+        assert got.success.all(), case
+    # K = 1 through estimate_motion, a row-strided flow as the staged
+    # pipeline hands it
+    packed = torch.cat([flow[0], torch.ones(96, 1)], 1)
+    one = te.estimate_motion(packed[:, :8], valid[0], calib_vec, warm[0],
+                             params, sample_ids=ids[0])
+    plain = te.estimate_motion_many_plain(
+        flow[:1], valid[:1], calib_vec, warm[:1], params,
+        sample_ids=ids[:1])
+    assert torch.equal(one.tr, plain.tr[0])
+    assert torch.equal(one.inliers, plain.inliers[0])
+    assert te.launches == before
+
+
+def _bad_args(case: str):
+    flow, valid, calib_vec, warm = synthetic_flow(2, 32, seed=3)
+    ids = torch.zeros(2, 5, 3, dtype=torch.int64)
+    args = dict(flow=flow, valid=valid, calib_vec=calib_vec, initial_tr=warm,
+                sample_ids=ids)
+    if case == "flow_dtype":
+        args["flow"] = flow.double()
+    elif case == "flow_shape":
+        args["flow"] = flow[..., :7]
+    elif case == "valid_dtype":
+        args["valid"] = valid.to(torch.uint8)
+    elif case == "calib_shape":
+        args["calib_vec"] = torch.zeros(3)
+    elif case == "initial_tr_K":
+        args["initial_tr"] = torch.zeros(3, 6)
+    elif case == "valid_K":
+        args["valid"] = torch.ones(1, 32, dtype=torch.bool)
+    elif case == "sample_ids_K":
+        args["sample_ids"] = torch.zeros(3, 5, 3, dtype=torch.int64)
+    elif case == "sample_ids_dtype":
+        args["sample_ids"] = ids.float()
+    elif case == "flow_columns_strided":
+        args["flow"] = flow.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "valid_non_contiguous":
+        args["valid"] = torch.ones(2, 64, dtype=torch.bool)[:, ::2]
+    elif case == "sample_ids_non_contiguous":
+        args["sample_ids"] = torch.zeros(2, 3, 5,
+                                         dtype=torch.int64).transpose(1, 2)
+    return args
+
+
+@pytest.mark.parametrize("case", [
+    "flow_dtype", "flow_shape", "valid_dtype", "calib_shape", "initial_tr_K",
+    "valid_K", "sample_ids_K", "sample_ids_dtype", "flow_columns_strided",
+    "valid_non_contiguous", "sample_ids_non_contiguous",
+])
+def test_wrapper_rejects_bad_arguments_before_any_launch(case, monkeypatch):
+    """Each argument fault the kernels cannot take raises ValueError in the
+    wrapper, before the plain version runs or a kernel launches."""
+    args = _bad_args(case)
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(te, "estimate_motion_many_plain", plain)
+    before = te.launches
+    with pytest.raises(ValueError, match="estimate_motion_many"):
+        te.estimate_motion_many(args["flow"], args["valid"],
+                                args["calib_vec"], args["initial_tr"], VO,
+                                sample_ids=args["sample_ids"])
+    assert te.launches == before
+
+
+@pytest.mark.parametrize("shape, orders", [
+    # visual odometry: one slot of 2048 matches, 500 hypotheses
+    ((1, 500, 2048), (False, 128, 31)),
+    # one object slot: the refinement's products split K
+    ((1, 200, 256), (False, 32, 8)),
+    # object batches: the hypotheses' J^T r by even and odd rows at
+    # 1400-2800 hypotheses in all, else by two blocks
+    ((6, 200, 256), (False, 1, 0)),
+    ((7, 200, 256), (True, 1, 0)),
+    ((14, 200, 256), (True, 1, 0)),
+    ((16, 200, 256), (False, 1, 0)),
+])
+def test_reduction_orders_follow_the_measured_cublas_choices(shape, orders):
+    """The summation orders the kernels reproduce (``csrc/egomotion.cu``'s
+    note), at the shapes where cuBLAS's choices were measured on the
+    card."""
+    assert te.reduction_orders(*shape) == orders
