@@ -10,6 +10,13 @@ compares the carry handed over with the one returned. After the window
 the reference recomputes each captured step (``reference.replay``) and
 ``compare`` reads the gaps. Every number has its limit in the cell's
 workload file (``"limits"``).
+
+A check plug-in (``checks/<name>.py``) adds readings of its own: its
+``probe(pipe, frames, run)`` is entered beside ``StepProbe`` for the run
+(a context manager whose ``__enter__`` returns what it captured), and
+after the window its ``gaps(captured, su, run)`` (``control_gaps`` for
+the control) gives ``{frame: {reading: value}}`` for every checked frame
+(``merge``).
 """
 
 from __future__ import annotations
@@ -204,6 +211,20 @@ class StepProbe:
 # ---------------------------------------------------------------------------
 # gaps
 # ---------------------------------------------------------------------------
+
+#: the readings ``compare_step`` and the hand-over give every checked
+#: frame: every cell's, then the dynamic step's
+STEP_READINGS = ("depth_diff_share", "pose_gap", "map_diff_share",
+                 "raycast_diff_share", "config_diff", "handover_diff")
+DYNAMIC_READINGS = ("mask_bits_diff", "motion_gap", "instance_diff_share",
+                    "cut_diff_share")
+ALL_READINGS = STEP_READINGS + DYNAMIC_READINGS
+
+
+def readings(dynamic: bool) -> tuple:
+    """The built-in check's readings of a static or dynamic cell."""
+    return ALL_READINGS if dynamic else STEP_READINGS
+
 
 
 def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -417,15 +438,33 @@ def control_gaps(su: replay.Setup, captured: dict, frames_u8, seg_folder,
     return gaps
 
 
+def merge(by_frame: Dict[int, Dict[str, float]], got: dict, names,
+          frames) -> List[tuple]:
+    """Adds a plug-in's gaps ``got`` ({frame: {reading: value}}) of the
+    readings ``names`` to ``by_frame``; returns the (frame, reading) pairs
+    of ``frames`` it gave no reading for."""
+    missing = []
+    for fi in frames:
+        g = got.get(fi, {})
+        for name in names:
+            if name in g:
+                by_frame.setdefault(fi, {})[name] = float(g[name])
+            else:
+                missing.append((fi, name))
+    return missing
+
+
 def judge(gaps: List[Dict[str, float]], limits: Dict[str, float]):
     """(correct, [(name, worst reading, limit)]): each number is the worst
-    over the checked frames, and holds when it is at most its limit."""
+    over the checked frames, and holds when it is at most its limit; a
+    limit that no frame has a reading for fails."""
     rows = []
     for name, limit in limits.items():
         vals = [g[name] for g in gaps if name in g]
         if not vals:
             continue
         rows.append((name, max(vals), float(limit)))
-    ok = bool(gaps) and all(v <= lim for _, v, lim in rows) \
+    ok = bool(gaps) and len(rows) == len(limits) \
+        and all(v <= lim for _, v, lim in rows) \
         and all(all(np.isfinite(list(g.values()))) for g in gaps)
     return ok, rows

@@ -3,9 +3,11 @@ correctness check and the result line.
 
 Set-up renders the cell's drive on the card (``scene``), writes the files
 the port's builder reads into the cell's cache folder once (calibration,
-frame 0, the MNC dumps of the dynamic cells), builds the pipeline with
-``pipeline.builder.build_fused``, and runs the warm-up frames, past the
-decay age, so that every timed frame decays in steady state.
+frame 0, the MNC dumps of the dynamic cells, the LIDAR scans where the
+configuration has a ``"lidar"`` rig), builds the pipeline with
+``pipeline.builder.build_fused`` (with the port's evaluation where it
+has a rig), and runs the warm-up frames, past the decay age, so that
+every timed frame decays in steady state.
 
 The window hands the camera's frames (uint8 gray pairs in host memory)
 to ``process_frame`` in a closed loop for ``--seconds``, then drains:
@@ -15,7 +17,8 @@ to ``process_frame`` in a closed loop for ``--seconds``, then drains:
 - dynamic: a worker thread parses frame i+1's MNC dump, selects and packs
   its masks and uploads them while the loop runs frame i (the reference's
   std::async read, DynSlam.cpp:33-45); the step's own packed fetch is the
-  loop's sync; ``_finish_prev`` closes the window.
+  loop's sync; ``_drain`` closes the window (with the evaluation, the
+  window's rows are written before it closes).
 
 A CUDA event recorded after each call, timed against one recorded when
 the window opened, gives each frame's latency (hand-off to the device's
@@ -24,12 +27,14 @@ end of the work the call enqueued) without a sync in the loop.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import json
 import math
 import os
 import random
+import shutil
 import statistics
 import sys
 import time
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from benchmark import check, configio, scene
+from benchmark import trace as tr
 from benchmark.reference import replay
 
 #: the forbidden top-level modules of a run's process
@@ -85,16 +91,27 @@ def _key(obj) -> str:
                           ).hexdigest()[:16]
 
 
+def folder_name(cell: dict, n: int) -> str:
+    """The name of the cell's folder for a drive of ``n`` poses: the
+    drive, the configuration and, where the configuration file has one,
+    its ``"lidar"`` object."""
+    key = [cell["drive"], cell["config_file"]["config"], n, 1]
+    if "lidar" in cell["config_file"]:
+        key.append(cell["config_file"]["lidar"])
+    return f"{cell['name']}-{_key(key)}"
+
+
 def dataset(cell: dict, drive: scene.Drive, gray: torch.Tensor, intr,
             baseline: float, cache: Path, device) -> str:
     """The cell's folder in KITTI odometry layout, written once: the
     calibration, frame 0's left image (the builder reads the frame size
-    from it) and, for a dynamic configuration, the MNC dumps of every
-    frame of the drive's layout. Returns its path."""
+    from it), for a dynamic configuration the MNC dumps of every frame of
+    the drive's layout and, for a configuration with a ``"lidar"`` rig,
+    every frame's scan (``lidar.write``). Returns its path."""
     conf = cell["config_file"]["config"]
     dynamic = bool(conf.get("dynamic_mode", True))
     n = len(drive.poses)
-    root = cache / f"{cell['name']}-{_key([cell['drive'], conf, n, 1])}"
+    root = cache / folder_name(cell, n)
     marker = root / ".complete"
     if marker.exists():
         return str(root)
@@ -116,6 +133,16 @@ def dataset(cell: dict, drive: scene.Drive, gray: torch.Tensor, intr,
             for f, ids_f in zip(frames, objid):
                 n_det += scene.write_dumps(str(seg), f, ids_f, ids)
         log(f"wrote {n_det} MNC detections for {n} frames")
+    rig = cell["config_file"].get("lidar")
+    if rig is not None:
+        from benchmark import lidar
+
+        t = time.perf_counter()
+        h, w = gray.shape[2:]
+        n_pts, n_bytes = lidar.write(str(root), drive, rig, intr, w, h,
+                                     device)
+        log(f"wrote {n} LIDAR scans, {n_pts} points ({n_pts / n:.0f} a "
+            f"scan), {n_bytes} B, in {time.perf_counter() - t:.1f} s")
     marker.touch()
     log(f"cell folder {root.name} written in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -229,11 +256,24 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     split["folder_s"] = t2 - t1
 
     config = configio.build(DynSlamConfig, conf)
+    rig = cell["config_file"].get("lidar")
+    csv_dir = None
+    eval_kw = {}
+    if rig is not None:
+        # the port's in-loop evaluation, as the configuration's
+        # ``evaluation`` sets it, its CSVs in a folder of this run's own
+        csv_dir = os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                               f"bench_csv_{os.getpid()}")
+        shutil.rmtree(csv_dir, ignore_errors=True)
+        eval_kw = dict(with_evaluation=True, csv_out_dir=csv_dir)
     pipe, _, segp = builder.build_fused(folder, config, baseline_m=baseline,
-                                        device=dev, seed=seed)
+                                        device=dev, seed=seed, **eval_kw)
     sync(dev)
     split["build_s"] = time.perf_counter() - t2
     checks = check_frames(cell, seed, n)
+    plugins = cell["plugins"]
+    run_info = dict(folder=folder, csv_dir=csv_dir, seed=seed,
+                    frames=checks)
     probe = check.StepProbe(
         dyn_mod if dynamic else fused_mod,
         "fused_dynamic_step" if dynamic else "fused_step", checks,
@@ -283,7 +323,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     last = max([checks[-1] + 1] + ([trace_from + n_trace - 1] if trace
                                    else []))
     t_warm = time.perf_counter()
-    with probe:
+    with probe, contextlib.ExitStack() as stack:
+        captured = {p: stack.enter_context(mod.probe(pipe, checks, run_info))
+                    for p, mod in plugins.items()}
         while i < n:
             if i == warm:
                 t_open = win.open()
@@ -297,7 +339,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                     and time.perf_counter() - t_open >= seconds:
                 # the window closes with a drain
                 if dynamic:
-                    pipe._finish_prev()
+                    _drain(pipe, rig is not None)
                 sync(dev)
                 t_end = time.perf_counter()
                 gc.callbacks.remove(gc_clock)
@@ -343,7 +385,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         if dynamic:
             fut.result()
             pool.shutdown(wait=True)
-            pipe._finish_prev()
+            _drain(pipe, rig is not None)
         sync(dev)
     if t_end is None:
         # the stream ran out before the time: the window closes at its end
@@ -362,6 +404,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         f"({gc_clock.n2} of generation 2) in {gc_clock.s:.3f} s")
     if dynamic:
         log(f"reconstructed objects: {pipe.reconstructed_objects()}")
+    if rig is not None:
+        evaluation = _close_evaluation(pipe, csv_dir,
+                                       range(warm, warm + done))
 
     metrics, breakdown, device_extra = {}, None, {}
     if not trace:
@@ -373,21 +418,22 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             if name in m.get("workloads", [name]):
                 value, unit = e2e[m["name"]]
                 metrics[m["name"]] = {"value": value, "unit": unit}
+    traced = range(trace_from, trace_from + n_trace)
+    collected = tr.collect_metrics(bench, name, pipe, traced, root) \
+        if trace else {}
     del pipe, segp
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     if trace:
-        from benchmark import trace as tr
         if prof is None:
             raise RuntimeError(f"the window closed before frame "
                                f"{trace_from + n_trace} of the trace")
         events = tr.export_and_read(prof, os.environ.get("TMPDIR", "/tmp"))
-        traced = range(trace_from, trace_from + n_trace)
         summary = tr.Summary(events, n_trace, extra=dict(
             k1=_k1_bound(k1_calls, su, H, W),
             seg_worker_ms=(sum(seg_s[f] for f in traced) * 1e3 / n_trace
-                           if dynamic else None)))
+                           if dynamic else None), **collected))
         metrics = tr.read_metrics(bench, name, summary, root)
         breakdown = summary.breakdown()
         device_extra = dict(busy_s=summary.busy_s,
@@ -398,11 +444,20 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     gaps = check.replay_captured(su, probe.captured, frames, seg, seed)
     for fi, g in zip(sorted(probe.captured), gaps):
         g["handover_diff"] = probe.handover_diff(fi)
+    gaps, silent = _with_plugins(gaps, probe, plugins, "gaps", captured, su,
+                                 run_info, cell["limits"])
     ok, rows = check.judge(gaps, cell["limits"])
     missing = sorted(set(checks) - set(probe.captured))
     if missing:
         ok = False
         log(f"check frames never ran: {missing}")
+    if silent:
+        ok = False
+        log(f"check plug-ins gave no reading (plug-in, frame, reading): "
+            f"{silent}")
+    unread = sorted(set(cell["limits"]) - {k for k, _, _ in rows})
+    if unread:
+        log(f"limits with no reading: {unread}")
     log(f"reference: {len(gaps)} steps in "
         f"{time.perf_counter() - t_ref:.1f} s")
     result = {
@@ -418,15 +473,78 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     result["setup_split"] = split
     if control:
         cgaps = check.control_gaps(su, probe.captured, frames, seg, seed)
+        cgaps, _ = _with_plugins(cgaps, probe, plugins, "control_gaps",
+                                 captured, su, run_info, cell["limits"])
         result["control"] = {k: v for k, v, _ in
                              check.judge(cgaps, cell["limits"])[1]}
         result["control_by_frame"] = cgaps
         result["gaps_by_frame"] = gaps
+    if csv_dir is not None:
+        shutil.rmtree(csv_dir, ignore_errors=True)
+        result["evaluation"] = evaluation
     result["checks"] = {k: {"value": v, "limit": lim} for k, v, lim in rows}
     for k, v, lim in rows:
         print(f"check {k}: {v!r} (limit {lim!r}) "
               f"{'ok' if v <= lim else 'FAIL'}", file=sys.stderr, flush=True)
     return result
+
+
+def _with_plugins(gaps: list, probe: check.StepProbe, plugins: dict,
+                  fn: str, captured: dict, su: replay.Setup, run_info: dict,
+                  limits: dict) -> tuple:
+    """The built-in ``gaps`` (one dict a frame ``probe`` captured) with each
+    plug-in's readings that ``limits`` names, from its ``fn`` ("gaps" or
+    "control_gaps"), merged in by frame: (gaps, [(plug-in, frame,
+    reading)] that a plug-in gave no reading for)."""
+    by_frame = dict(zip(sorted(probe.captured), gaps))
+    silent = []
+    for p, mod in plugins.items():
+        names = [r for r in mod.READINGS if r in limits]
+        got = getattr(mod, fn)(captured[p], su, run_info)
+        silent += [(p, fi, r) for fi, r in check.merge(
+            by_frame, got, names, run_info["frames"])]
+    return [by_frame[f] for f in sorted(by_frame)], silent
+
+
+def _drain(pipe, evaluating: bool) -> None:
+    """The dynamic pipeline's tail: its last dispatch's tracker pass and,
+    with the evaluation, every frame's evaluation submitted and its rows
+    written. The pipeline stages one frame's evaluation at a time and
+    renders it once a later dispatch has fused that frame's views; a
+    tracker pass out of turn would stage another over it, so the staged
+    frame, and then the last one, are rendered first, with the volumes as
+    they are (as ``finalize`` renders the last)."""
+    if evaluating:
+        pipe._flush_eval(force=True)
+    pipe._finish_prev()
+    if evaluating:
+        pipe._flush_eval(force=True)
+        pipe.evaluation.drain()
+
+
+def _close_evaluation(pipe, csv_dir: str, window) -> dict:
+    """Closes the port's evaluation and logs what it did: scans read,
+    depth rows written, the frames of ``window`` without one, failed
+    fetches, the object renders and the worker's time a job."""
+    import glob
+
+    ev = pipe.evaluation
+    ev.close()
+    rows = []
+    for path in glob.glob(os.path.join(csv_dir,
+                                       "*-unified-depth-result.csv")):
+        with open(path) as f:
+            rows += [int(line.split(",", 1)[0]) for line in f.readlines()[1:]]
+    jobs = sorted(ev.job_ms)
+    out = dict(scans=len(jobs), depth_rows=len(rows),
+               window_frames_without_rows=sorted(set(window) - set(rows)),
+               failed_fetches=ev.failed_fetches,
+               eval_crop_renders=pipe.eval_crop_renders,
+               eval_full_renders=pipe.eval_full_renders,
+               job_ms_median=statistics.median(jobs) if jobs else None,
+               job_ms_max=jobs[-1] if jobs else None)
+    log("evaluation: " + ", ".join(f"{k} {v}" for k, v in out.items()))
+    return out
 
 
 def _event():

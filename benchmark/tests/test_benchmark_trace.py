@@ -45,6 +45,14 @@ def _frame(t0):
             ev.append(dict(name="Memset (Device)", cat="gpu_memset",
                            ts=t - 1, dur=1))
         g0 = t
+    # host ranges that launch nothing: the input copies before stereo,
+    # the host tracker's association, its wait on the packed fetch and
+    # its pass after it
+    for name, s, d in (("fused_step.upload", 2, 6),
+                       ("fused_dyn.associate", 362, 6),
+                       ("fused_dyn.fetch_wait", 370, 2),
+                       ("fused_dyn.tracker", 374, 14)):
+        ev.append(dict(name=name, cat="user_annotation", ts=t0 + s, dur=d))
     return ev
 
 
@@ -101,6 +109,11 @@ def test_every_metric_file_reads_the_trace():
         "decay_device_ms": 0.003, "obj_ransac_host_ms": 0.06,
         "instances_host_ms": 0.02,
         "device_idle": 100 * (1 - s.busy_s / s.window_s),
+        "upload_host_ms": 0.006, "tracker_host_ms": 0.006 + 0.014,
+        "fetch_wait_ms": 0.002,
+        # a 400-us loop less the port's ranges in it: 2-8, 10-360 (the
+        # stages end to end), 362-368, 370-372 and 374-388 us
+        "loop_unspanned_ms": (400 - (6 + 350 + 6 + 2 + 14)) / 1e3,
     }
     bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
     names = [m["name"] for m in bench["per_layer"]]
@@ -117,3 +130,4 @@ def test_metrics_leave_out_what_they_cannot_read():
                  "k2_device_ms", "device_idle", "seg_worker_ms",
                  "egomotion_launches"):
         assert _metric(name).read(s) is None, name
+

@@ -151,22 +151,35 @@ def export_and_read(prof, tmp_dir: str) -> List[dict]:
         os.remove(path)
 
 
+def _metric_files(bench: dict, cell: str, root):
+    """(entry, module) of each per-layer metric of ``bench`` that ``cell``
+    reports, its module ``metrics/<name>.py``."""
+    from pathlib import Path
+
+    from benchmark.configio import load_module
+
+    for m in bench["per_layer"]:
+        if cell in m.get("workloads", [cell]):
+            yield m, load_module(Path(root) / "metrics" / f"{m['name']}.py",
+                                 "benchmark_metric")
+
+
+def collect_metrics(bench: dict, cell: str, pipe, frames, root) -> dict:
+    """What the cell's metric files that define ``collect(pipe, frames)``
+    collect from the pipeline after a traced run (``frames``: the traced
+    ones), by metric name: the harness puts each in ``Summary.extra``,
+    where that metric's ``read`` finds it."""
+    return {m["name"]: mod.collect(pipe, frames)
+            for m, mod in _metric_files(bench, cell, root)
+            if hasattr(mod, "collect")}
+
+
 def read_metrics(bench: dict, cell: str, summary: Summary, root) -> dict:
     """The cell's per-layer metrics of ``bench`` (``BENCHMARK.json``): each
     read by its own file ``metrics/<name>.py`` (``read(summary)``), left
     out where the reader finds nothing."""
-    import importlib.util
-    from pathlib import Path
-
     out = {}
-    for m in bench["per_layer"]:
-        if cell not in m.get("workloads", [cell]):
-            continue
-        path = Path(root) / "metrics" / f"{m['name']}.py"
-        spec = importlib.util.spec_from_file_location(
-            f"benchmark_metric_{m['name'].replace('.', '_')}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+    for m, mod in _metric_files(bench, cell, root):
         value = mod.read(summary)
         if value is not None:
             out[m["name"]] = {"value": value, "unit": m["unit"]}
