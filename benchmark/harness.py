@@ -23,6 +23,11 @@ to ``process_frame`` in a closed loop for ``--seconds``, then drains:
 A CUDA event recorded after each call, timed against one recorded when
 the window opened, gives each frame's latency (hand-off to the device's
 end of the work the call enqueued) without a sync in the loop.
+
+Where the cell reports ``frame_device_ms``, an untraced run keeps a
+CUDA-only profiler on from the window's opening to its close (the device
+clock): the card's busy time, the union of its kernels, copies and
+memsets, over the window's frames, read after the window.
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "dynslam_tpu")
 CHECK_FRAMES, CHECK_SPAN = 1, 16
 #: window frames a traced run profiles
 TRACE_FRAMES = 8
+#: the end-to-end metrics the harness takes
+END_TO_END = ("fps", "frame_p90_ms", "frame_device_ms", "setup_s")
 
 
 def log(msg: str) -> None:
@@ -226,6 +233,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                        .read_text())
     dev = torch.device(device)
     cuda = dev.type == "cuda"
+    e2e_names = [m["name"] for m in bench["end_to_end"]
+                 if name in m.get("workloads", [name])]
+    device_clock = cuda and not trace and "frame_device_ms" in e2e_names
     su = replay.setup(conf)
     c = su.config
     intr = (c.intrinsics.fx, c.intrinsics.fy, c.intrinsics.cx,
@@ -310,7 +320,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             return real(cfg, state, slots, slots_mask, *a, **kw)
         return wrapped
 
-    prof = window_range = None
+    prof = window_range = clock = None
     real_integrate = fused_mod.integrate
     fut = pool.submit(seg_job, 0) if dynamic else None
     prev = None
@@ -328,9 +338,18 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                     for p, mod in plugins.items()}
         while i < n:
             if i == warm:
+                clock_s = 0.0
+                if device_clock:
+                    # its start (the first loads CUPTI) is the benchmark's
+                    # and not the port's set-up
+                    sync(dev)
+                    t = time.perf_counter()
+                    clock = profile(activities=[ProfilerActivity.CUDA])
+                    clock.__enter__()
+                    clock_s = split["clock_s"] = time.perf_counter() - t
                 t_open = win.open()
-                setup_s = t_open - t_start
-                split["warmup_s"] = t_open - t_warm
+                setup_s = t_open - t_start - clock_s
+                split["warmup_s"] = t_open - t_warm - clock_s
                 gc.callbacks.append(gc_clock)
                 log(f"set-up {setup_s:.2f} s ("
                     + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
@@ -344,6 +363,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                 t_end = time.perf_counter()
                 gc.callbacks.remove(gc_clock)
                 done = i - warm
+                if clock is not None:
+                    clock.__exit__(None, None, None)
                 if i > last:
                     break
                 log(f"frames {i}..{last} run past the window for the "
@@ -392,6 +413,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         t_end = time.perf_counter()
         gc.callbacks.remove(gc_clock)
         done = i - warm
+        if clock is not None:
+            clock.__exit__(None, None, None)
     fused_mod.integrate = real_integrate
     lat = win.latencies_ms()
     fps = done / (t_end - t_open)
@@ -414,10 +437,18 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                    frame_p90_ms=(statistics.quantiles(lat, n=10)[-1]
                                  if len(lat) > 1 else lat[0], "ms"),
                    setup_s=(setup_s, "s"))
-        for m in bench["end_to_end"]:
-            if name in m.get("workloads", [name]):
-                value, unit = e2e[m["name"]]
-                metrics[m["name"]] = {"value": value, "unit": unit}
+        if clock is not None:
+            t = time.perf_counter()
+            busy, ops = tr.device_busy(clock.profiler.kineto_results.events())
+            del clock
+            e2e["frame_device_ms"] = (busy * 1e3 / done, "ms")
+            log(f"device clock: {ops} operations busy {busy:.4f} s over "
+                f"{done} frames ({busy * 1e3 / done:.4f} ms a frame), read "
+                f"in {time.perf_counter() - t:.1f} s")
+        for m in e2e_names:
+            if m in e2e:
+                value, unit = e2e[m]
+                metrics[m] = {"value": value, "unit": unit}
     traced = range(trace_from, trace_from + n_trace)
     collected = tr.collect_metrics(bench, name, pipe, traced, root) \
         if trace else {}

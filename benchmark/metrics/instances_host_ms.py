@@ -2,7 +2,7 @@
 
 LAYER = "instance fusion"
 UNIT = "ms"
-MOVES = "fps"
+MOVES = "frame_device_ms"
 
 
 def read(s):

@@ -2,7 +2,7 @@
 
 LAYER = "segmentation feed"
 UNIT = "ms"
-MOVES = "fps"
+MOVES = "frame_device_ms"
 
 
 def read(s):

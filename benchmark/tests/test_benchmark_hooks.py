@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 
 from benchmark import configio, harness, lidar, scene
-from benchmark.tests import tiny
+from benchmark.tests import guards, tiny
 
 #: a plug-in that reads the evaluation's CSV folder: 1 for each checked
 #: frame without a depth row
@@ -309,17 +309,12 @@ def test_limits_need_a_producer(root):
 
 
 def test_committed_cells_are_unchanged():
-    """The committed workloads load with no plug-in and no rig, and keep
-    their folders: ``static-drive``'s name is pinned as it was before the
-    hooks."""
-    bench = json.loads((configio.ROOT.parent / "BENCHMARK.json").read_text())
-    for w in bench["workloads"]:
-        cell = configio.load_workload(w["name"])
-        assert cell["plugins"] == {} and "lidar" not in cell["config_file"]
-    cell = configio.load_workload("static-drive")
-    n = len(scene.make_drive(cell["drive"], harness.cell_frames(
-        cell, bench["run_seconds"])).poses)
-    assert harness.folder_name(cell, n) == "static-drive-f737d675be6bc683"
+    """``static-drive``, ``dynamic-traffic`` and the kept
+    ``dynamic-empty-road`` load with no plug-in and no rig, and
+    ``static-drive`` keeps the folder it had before the hooks; every other
+    cell of BENCHMARK.json loads, a rigged one dynamic with a valid rig and
+    plug-ins that its limits name."""
+    guards.committed_cells_load()
 
 
 def test_collect_reaches_read(root):

@@ -7,7 +7,8 @@ that ran inside its device projection), with the device's busy time taken
 over the traced window's wall time (the ``bench.window`` range), kernel
 time by kernel name, and the breakdown the result line carries: the
 device operations that took most time and the longest idle gaps by the
-host range that was open.
+host range that was open. ``device_busy`` reads the device clock of an
+untraced run: the card's busy time over the whole window.
 """
 
 from __future__ import annotations
@@ -33,6 +34,27 @@ def union_us(intervals) -> float:
             busy += s1 - max(s0, end)
             end = s1
     return busy
+
+
+def device_busy(events) -> tuple:
+    """(seconds, operations) of the card's busy time in ``events``, a
+    profiler's raw events (``prof.profiler.kineto_results.events()``):
+    the union of the spans of its kernels, copies and memsets, the events
+    on the CUDA device that are no range's projection."""
+    import numpy as np
+    from torch.autograd import DeviceType
+
+    iv = np.array([(e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in events if e.device_type() == DeviceType.CUDA
+                   and not e.is_user_annotation()],
+                  dtype=np.int64).reshape(-1, 2)
+    if not len(iv):
+        return 0.0, 0
+    iv = iv[np.argsort(iv[:, 0], kind="stable")]
+    ends = np.maximum.accumulate(iv[:, 1])
+    before = np.concatenate((iv[:1, 0], ends[:-1]))
+    busy = np.clip(iv[:, 1] - np.maximum(iv[:, 0], before), 0, None).sum()
+    return float(busy) / 1e9, len(iv)
 
 
 def _gaps(intervals, lo: float, hi: float) -> List[Tuple[float, float]]:
