@@ -18,8 +18,9 @@ and never prints its last line):
 
 1. device: a CUDA device is required; prints its name and power limit;
 2. build: compiles the hand-written kernels ``csrc/integrate.cu``,
-   ``csrc/raycast.cu`` and ``csrc/egomotion.cu`` with nvcc (``sm_90a``,
-   ``-fmad=false``), one nvcc process per source, all started together;
+   ``csrc/raycast.cu``, ``csrc/egomotion.cu`` and ``csrc/stereo.cu`` with
+   nvcc (``sm_90a``, ``-fmad=false``), one nvcc process per source, all
+   started together;
    prints registers and spills;
 3. K1: the fusion kernel against its plain PyTorch version
    ``integrate_ref`` on the card, at the bench configuration (1242x375,
@@ -254,9 +255,22 @@ and never prints its last line):
     sum lies within 1e-3 px^2 of the threshold, two kernel runs bitwise
     equal, two launches a call. Prints both kernels' times on the largest
     visual-odometry call and on the object batch, beside the plain
-    version's.
+    version's;
+23. stereo: ``compute_disparity`` and ``depth_m_from_stereo`` on CUDA
+    (the kernels of ``csrc/stereo.cu``) against ``compute_disparity_plain``
+    and ``ops/depth.py``'s conversion on the card, bit for bit, two runs
+    equal, at most 4 launches a call: phase 5's last frame at the bench's
+    stereo parameters (1242x375, 128 disparities), that frame at half
+    scale (621x188, 64), 32 disparities, the gap fill (8 px), no median,
+    tie-heavy images (flat patches, stripes, a checkerboard) with and
+    without the median, 37 disparities (the kernels' path for a count
+    that is not a multiple of 8) and radii 2 and 3. Prints the kernels'
+    times at the bench's frame (the whole chain, and each kernel's share
+    from a profiler trace of it) beside the popcount bound, the cost
+    volume's bytes and the plain version's time; the kernels JSON line
+    takes the stereo launches of phase 5's slice.
 
-Phases 3, 4, 7, 9, 12, 14, 15 and 17-22 also print each kernel's times:
+Phases 3, 4, 7, 9, 12, 14, 15 and 17-23 also print each kernel's times:
 the bare kernel (its prepared C call alone, no Python conversion between
 launches), warm (50 back-to-back launches between two CUDA events) and
 cold (the L2
@@ -336,7 +350,7 @@ K2_MAX_MEDIAN_DEPTH = 1e-4  # m
 #: kernel) and the march (header clear and kernel), and no small ops
 RAYCAST_STAGE_MAX_LAUNCHES = 8
 #: kernel sources under dynslam_tpu_torch/csrc/
-KERNEL_SOURCES = ("integrate", "raycast", "egomotion")
+KERNEL_SOURCES = ("integrate", "raycast", "egomotion", "stereo")
 #: a fused run's last render: the share of pixels that hit the map, at
 #: least (``PERF.md`` §2)
 MIN_HIT_FRACTION = 0.5
@@ -382,24 +396,37 @@ OPS_PER_WORD = 4
 OPS_PER_CORNER = 12
 
 
+#: the map kernels' launch counts, one launch a fused frame each
+MAP_KERNELS = ("integrate", "candidates", "raycast")
+
+
 def reset_launches() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from dynslam_tpu_torch.ops import integrate as K1
     from dynslam_tpu_torch.ops import raycast as K2
+    from dynslam_tpu_torch.ops import stereo
 
     K1.integrate.launches = 0
     K2.candidate_bits.launches = 0
     K2.raycast.launches = 0
+    stereo.launches = 0
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count."""
+    """Every kernel wrapper's launch count: ``MAP_KERNELS`` and the
+    stereo kernels'."""
     from dynslam_tpu_torch.ops import integrate as K1
     from dynslam_tpu_torch.ops import raycast as K2
+    from dynslam_tpu_torch.ops import stereo
 
     return dict(integrate=K1.integrate.launches,
                 candidates=K2.candidate_bits.launches,
-                raycast=K2.raycast.launches)
+                raycast=K2.raycast.launches, stereo=stereo.launches)
+
+
+def map_launches(launches: dict) -> dict:
+    """``launch_counts``' map kernels alone."""
+    return {k: launches[k] for k in MAP_KERNELS}
 
 
 def plain_call(fn):
@@ -1061,10 +1088,15 @@ def run_slice(config, frames, device, census_frame=CENSUS_FRAME,
 def check_slice(res, n_frames: int, config) -> dict:
     recs = res["recs"]
     fused = n_frames - 1
-    for k, v in res["launches"].items():
+    for k, v in map_launches(res["launches"]).items():
         if v != fused:
             raise AssertionError(f"{k}: {v} launches in the slice, expected "
                                  f"one per fused frame ({fused})")
+    per_call = 4 if config.stereo.subpixel else 3
+    if res["launches"]["stereo"] != per_call * fused:
+        raise AssertionError(f"stereo: {res['launches']['stereo']} launches "
+                             f"in the slice, expected {per_call} a fused "
+                             f"frame ({fused})")
     vo_ok = sum(r["vo"] for r in recs)
     if vo_ok < fused - 1:
         raise AssertionError(f"VO succeeded on {vo_ok} of {fused} steps")
@@ -1230,7 +1262,7 @@ def check_dynamic(res, frames) -> dict:
     want = dict(integrate=disp + res["recorder"].calls,
                 candidates=disp + res["rendered"],
                 raycast=disp + res["rendered"])
-    if res["launches"] != want:
+    if map_launches(res["launches"]) != want:
         raise AssertionError(f"dynamic slice launches {res['launches']}, "
                              f"expected {want} ({disp} dispatches, "
                              f"{res['recorder'].calls} with routed volumes, "
@@ -1553,7 +1585,7 @@ def check_dynamic_eval(res, off: dict) -> dict:
         + pipe.eval_full_renders
     want = dict(integrate=disp + res["recorder"].calls,
                 candidates=disp + renders, raycast=disp + renders)
-    if res["launches"] != want:
+    if map_launches(res["launches"]) != want:
         raise AssertionError(
             f"dynamic slice with evaluation: launches {res['launches']}, "
             f"expected {want} ({pipe.eval_crop_renders} crop and "
@@ -2172,8 +2204,8 @@ def check_renderer(dyn, out_dir: Path) -> dict:
                              "PNGs")
     if len(hits) != ORBIT_FRAMES or min(hits) == 0:
         raise AssertionError(f"orbit hits {hits}")
-    if orbit != dict(integrate=0, candidates=ORBIT_FRAMES,
-                     raycast=ORBIT_FRAMES) \
+    if map_launches(orbit) != dict(integrate=0, candidates=ORBIT_FRAMES,
+                                   raycast=ORBIT_FRAMES) \
             or kernels + memsets > RAYCAST_STAGE_MAX_LAUNCHES:
         raise AssertionError(f"orbit K2 launches {orbit}, {kernels:.0f} "
                              f"kernels and {memsets:.0f} memsets a render")
@@ -4060,7 +4092,8 @@ def run_phase20(base, sdir: Path, config, dconfig, frames, dyn_frames, device,
         raise AssertionError(f"previews {previews}, mesh {len(faces)} "
                              f"faces over {n_v} vertices")
     fused = n - 1
-    if a.launches != dict(integrate=fused, candidates=fused, raycast=fused):
+    if map_launches(a.launches) != dict(integrate=fused, candidates=fused,
+                                        raycast=fused):
         raise AssertionError(f"fused CLI launches {a.launches}, one a "
                              f"fused frame expected ({fused})")
     say("fused-cli", f"20a: main --fused --no-dynamic_mode over phase 5's "
@@ -4572,6 +4605,198 @@ def egomotion_entries(eg: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 23: the stereo kernels against their plain version
+# ---------------------------------------------------------------------------
+
+#: phase 23's bound: the population counts the census costs need, two
+#: 32-bit ones a 48-bit Hamming cost, at the H100 SXM's rate of 16 a clock
+#: on each SM (the CUDA C++ Programming Guide's table of instruction
+#: throughput, compute capability 9.0), 132 SMs at the 1.98 GHz boost clock
+POPC_PER_S = 132 * 16 * 1.98e9
+#: the most kernel launches a stereo call may make (census, cost volume,
+#: winner-take-alls, median), and the most the fused step's stereo stage
+#: may make and memset a frame (the kernels with the depth conversion)
+STEREO_MAX_LAUNCHES = 4
+
+
+def tie_heavy_pair(h: int, w: int, seed: int):
+    """Flat patches of five grey levels, a band of period-8 stripes and a
+    checkerboard band, where integer costs tie across many disparities;
+    the right image is the left one 17 columns to the left."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    img = np.zeros((h, w), np.float32)
+    for _ in range(80):
+        y, x = rng.integers(0, h), rng.integers(0, w)
+        img[y:y + rng.integers(5, 60), x:x + rng.integers(5, 120)] = \
+            rng.choice([0.0, 64.0, 128.0, 192.0, 255.0])
+    img[h // 3:h // 3 + 40] = ((np.arange(w) // 4) % 2) * 200.0
+    img[2 * h // 3:2 * h // 3 + 30] = ((np.arange(w)[None] // 3
+                                        + np.arange(30)[:, None] // 3)
+                                       % 2) * 100.0
+    return img, np.roll(img, -17, axis=1)
+
+
+def stereo_cases(config, frames, device) -> list:
+    """Phase 23's (name, left, right, params): see the module's notes."""
+    import torch
+
+    sp = config.stereo
+    rep = dataclasses.replace
+
+    def dev(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    lg = dev(frames["left"][N_FRAMES - 1])
+    rg = dev(frames["right"][N_FRAMES - 1])
+    hl, hr = lg[::2, ::2].contiguous(), rg[::2, ::2].contiguous()
+    tl, tr = (dev(a) for a in tie_heavy_pair(H, W, SEED))
+    return [
+        ("drive", lg, rg, sp),
+        # scripts/scale_sequence.py's disparities at half scale
+        ("half-scale", hl, hr,
+         rep(sp, max_disparity=max(32, int(sp.max_disparity * 0.5)))),
+        ("32-disparities", lg, rg, rep(sp, max_disparity=32)),
+        ("fill-gaps-8", lg, rg, rep(sp, fill_gaps=8)),
+        ("no-median", lg, rg, rep(sp, subpixel=False)),
+        ("ties", tl, tr, sp),
+        ("ties-no-median", tl, tr, rep(sp, subpixel=False)),
+        ("37-disparities", hl, hr, rep(sp, max_disparity=37)),
+        ("radii-2-3", hl, hr, rep(sp, max_disparity=40, census_radius=2,
+                                  aggregation_radius=3)),
+    ]
+
+
+def first_differences(got, want, what: str) -> str:
+    """Where two maps differ: the count and the first four pixels."""
+    import torch
+
+    bad = got != want
+    at = torch.nonzero(bad)[:4].tolist()
+    return (f"{int(bad.sum())} {what} values differ, first at {at}: "
+            f"{[got[i, j].item() for i, j in at]} vs "
+            f"{[want[i, j].item() for i, j in at]}")
+
+
+def kernel_split(launch, n: int = BARE_LAUNCHES) -> dict:
+    """Each kernel's device ms a call over ``n`` back-to-back runs of a
+    prepared C call, warm, from a torch.profiler (CUPTI) trace, by the
+    name of the kernel's function (``<name>_kernel``)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynslam_tpu_torch.ops import cuda_build
+
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            launch()
+        torch.cuda.synchronize()
+    trace = Path(cuda_build.BUILD_DIR) / "kernel_split_trace.json"
+    prof.export_chrome_trace(str(trace))
+    out = {}
+    for e in json.loads(trace.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            name = re.search(r"(\w+)_kernel", e["name"])
+            key = name.group(1) if name else e["name"]
+            out[key] = out.get(key, 0.0) + e["dur"] / 1e3 / n
+    if not out:
+        raise AssertionError("the profiler recorded no kernel")
+    return out
+
+
+def check_stereo(config, cfg, frames, device, flush) -> dict:
+    """Phase 23: the stereo kernels held to the plain version on each of
+    ``stereo_cases``; their times at the bench's frame."""
+    import torch
+
+    from dynslam_tpu_torch.ops import depth as depth_ops
+    from dynslam_tpu_torch.ops import stereo
+
+    calib = config.calibration
+    conv = (calib.baseline_m * calib.focal_length_px, cfg.min_depth,
+            cfg.max_depth)
+
+    def plain(lg, rg, p):
+        disp = stereo.compute_disparity_plain(lg, rg, p)
+        return disp, depth_ops.depth_m_from_mm(
+            depth_ops.depth_mm_from_disparity(disp, *conv))
+
+    cases = stereo_cases(config, frames, device)
+    rows, err = [], 0.0
+    for name, lg, rg, p in cases:
+        n0 = stereo.launches
+        got = stereo.compute_disparity(lg, rg, p)
+        again = stereo.compute_disparity(lg, rg, p)
+        n = (stereo.launches - n0) // 2
+        depth = stereo.depth_m_from_stereo(lg, rg, p, *conv)
+        want, want_depth = plain(lg, rg, p)
+        torch.cuda.synchronize()
+        if not 1 <= n <= STEREO_MAX_LAUNCHES:
+            raise AssertionError(f"stereo {name}: {n} launches a call")
+        if not torch.equal(got, again):
+            raise AssertionError(f"stereo {name}: two runs differ: "
+                                 + first_differences(got, again, "disparity"))
+        for what, x, y in (("disparity", got, want),
+                           ("depth", depth, want_depth)):
+            if x.dtype != y.dtype or x.shape != y.shape:
+                raise AssertionError(f"stereo {name}: {what} {x.dtype} "
+                                     f"{tuple(x.shape)}, plain {y.dtype} "
+                                     f"{tuple(y.shape)}")
+            err = max(err, float((x - y).abs().max()))
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"stereo {name} against the plain version: "
+                    + first_differences(x, y, what))
+        rows.append(dict(name=name, hw=tuple(lg.shape), D=p.max_disparity,
+                         launches=n,
+                         valid=float((want > 0).float().mean())))
+    _, lg, rg, p = cases[0]
+    run = stereo.launch_args(lg, rg, p, depth=conv)
+    h, w = lg.shape
+    costs = h * w * p.max_disparity
+    wrapper = median_ms(lambda: stereo.depth_m_from_stereo(lg, rg, p, *conv),
+                        20)
+    times = dict(kernel_times(run.call, flush), wrapper_ms=wrapper,
+                 plain_ms=median_ms(lambda: plain(lg, rg, p), 3),
+                 max_abs_err=err, bound_ms=2 * costs / POPC_PER_S * 1e3,
+                 bound_by="popcounts", bound_bytes=h * w * 4 * 4,
+                 bound_ops=2 * costs,
+                 volume_ms=2 * costs * 2 / HBM_BYTES_PER_S * 1e3)
+    return dict(cases=rows, times=times, split=kernel_split(run.call))
+
+
+def report_stereo(sr: dict) -> None:
+    """Phase 23's lines."""
+    for r in sr["cases"]:
+        say("stereo", f"{r['name']} {r['hw'][1]}x{r['hw'][0]}, {r['D']} "
+                      f"disparities: disparity and depth equal to the plain "
+                      f"version's bit for bit, two runs equal, "
+                      f"{r['launches']} launches a call, "
+                      f"{r['valid'] * 100:.1f}% valid")
+    t = sr["times"]
+    say("stereo", f"{timing_text(t)}; the int16 cost volume written and "
+                  f"read once {t['volume_ms'] * 1e3:.1f} us; largest "
+                  f"difference from the plain version {t['max_abs_err']}")
+    say("stereo", "each kernel of the chain (warm ms a call, profiler): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in sr["split"].items()))
+
+
+def stereo_entry(sr: dict, launches: int, per_frame: float) -> dict:
+    """Phase 23's entry of the kernels JSON line: the kernels' launches
+    in phase 5's slice and a fused frame's there, the times at the
+    bench's frame."""
+    src = dict(route="cuda", source="dynslam_tpu_torch/csrc/stereo.cu",
+               replaces=None)
+    return kernel_entry("stereo", src, launches, per_frame, sr["times"])
+
+
+# ---------------------------------------------------------------------------
 # phase 21: the port's bench
 # ---------------------------------------------------------------------------
 
@@ -4937,6 +5162,14 @@ def main(argv=None) -> int:
     say("profile", f"raycast stage {rc_kernels:.0f} launches and "
                    f"{rc_memsets:.0f} memsets a frame (at most "
                    f"{RAYCAST_STAGE_MAX_LAUNCHES} in all)")
+    _, st_ms, st_kernels, st_memsets = prof["stages"]["fused_step.stereo"]
+    if st_kernels + st_memsets > STEREO_MAX_LAUNCHES:
+        raise AssertionError(
+            f"stereo stage: {st_kernels:.0f} launches and {st_memsets:.0f} "
+            f"memsets a frame (at most {STEREO_MAX_LAUNCHES} in all)")
+    say("profile", f"stereo stage {st_kernels:.0f} launches and "
+                   f"{st_memsets:.0f} memsets a frame, {st_ms:.4f} ms of "
+                   f"device time")
     del res, scene
 
     clock(8)
@@ -5532,10 +5765,17 @@ def main(argv=None) -> int:
     report_egomotion(eg)
     kernels += egomotion_entries(eg)
 
+    clock(23)
+    # 23. the stereo kernels vs plain, on phase 5's last frame and others
+    sr = check_stereo(config, cfg, frames, device, flush)
+    report_stereo(sr)
+    kernels.append(stereo_entry(sr, static_launches["stereo"],
+                                static_launches["stereo"] / (N_FRAMES - 1)))
+
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"paths whose kernel never launched: {idle}")
-    say("done", f"phases 1-22 in {time.perf_counter() - t_start:.1f} s")
+    say("done", f"phases 1-23 in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,14 @@ import torch
 from dynslam_tpu_torch.ops.tsdf import recip32
 
 MM_PER_M = 1000.0
+#: metres a mm: the float32 reciprocal of 1000, as XLA evaluates the JAX
+#: package's division inside its jitted frame step
+M_PER_MM = recip32(MM_PER_M)
+
+
+def mm_range(min_depth_m: float, max_depth_m: float):
+    """The valid depth range (min, max) in whole mm."""
+    return int(min_depth_m * MM_PER_M), int(max_depth_m * MM_PER_M)
 
 
 def depth_mm_from_disparity(
@@ -30,8 +38,7 @@ def depth_mm_from_disparity(
 ) -> torch.Tensor:
     """Disparity (H, W) float -> int16 depth in mm; |disp| < 1e-5 and
     out-of-range depths become 0."""
-    min_mm = int(min_depth_m * MM_PER_M)
-    max_mm = int(max_depth_m * MM_PER_M)
+    min_mm, max_mm = mm_range(min_depth_m, max_depth_m)
     den = torch.where(
         disparity_px.abs() < 1e-5,
         torch.full_like(disparity_px, float("inf")),
@@ -51,10 +58,9 @@ def depth_mm_from_disparity(
 
 
 def depth_m_from_mm(depth_mm: torch.Tensor) -> torch.Tensor:
-    """int16 mm depth -> float32 meters, 0 stays 0 (invalid). Multiplies
-    by the float32 reciprocal of 1000, as XLA evaluates the JAX
-    package's division inside its jitted frame step."""
-    return depth_mm.to(torch.float32) * recip32(MM_PER_M)
+    """int16 mm depth -> float32 meters, 0 stays 0 (invalid): a product
+    with ``M_PER_MM``."""
+    return depth_mm.to(torch.float32) * M_PER_MM
 
 
 def disparity_from_depth_m(depth_m: torch.Tensor, bf: float) -> torch.Tensor:

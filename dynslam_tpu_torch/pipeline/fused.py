@@ -26,7 +26,6 @@ from dynslam_tpu_torch.config import (
     VoxelDecayParams,
 )
 from dynslam_tpu_torch.device import DeviceLike, resolve_device
-from dynslam_tpu_torch.ops import depth as depth_ops
 from dynslam_tpu_torch.ops import egomotion as ego_ops
 from dynslam_tpu_torch.ops import features as feat_ops
 from dynslam_tpu_torch.ops import stereo as stereo_ops
@@ -138,10 +137,9 @@ def front_end(cfg, stereo_params, vo_params, carry, left_gray, right_gray,
     """Stereo -> depth, features -> circular match -> LK refine, RANSAC
     egomotion with the ICP fallback; ``carry`` is read, not changed."""
     with _stage("stereo"):
-        disp = stereo_ops.compute_disparity(left_gray, right_gray,
-                                            stereo_params)
-        depth_m = depth_ops.depth_m_from_mm(depth_ops.depth_mm_from_disparity(
-            disp, bf, cfg.min_depth, cfg.max_depth))
+        depth_m = stereo_ops.depth_m_from_stereo(
+            left_gray, right_gray, stereo_params, bf, cfg.min_depth,
+            cfg.max_depth)
 
     with _stage("features"):
         cur_l, cur_r = feat_ops.detect_features_pair(left_gray, right_gray,
